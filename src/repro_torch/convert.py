@@ -14,6 +14,7 @@ from typing import NamedTuple, Type
 import numpy as np
 import torch
 
+from .analytics.view import CSRView, RunView
 from .core.index import IndexState
 from .core.types import CSRRunArrays, EdgeBatch, MemGraphState
 
@@ -56,6 +57,19 @@ def index_to_torch(idx, device) -> IndexState:
 
 def edge_batch_to_torch(batch, device) -> EdgeBatch:
     return _tuple_to_torch(batch, EdgeBatch, device)
+
+
+def csr_view_to_torch(view, device) -> CSRView:
+    """An analytics ``CSRView`` (arrays and the two counts) as the port's."""
+    return CSRView(voff=array_to_torch(view.voff, device),
+                   dst=array_to_torch(view.dst, device),
+                   prop=array_to_torch(view.prop, device),
+                   n_vertices=int(view.n_vertices),
+                   n_edges=int(view.n_edges))
+
+
+def run_view_to_torch(view, device) -> RunView:
+    return _tuple_to_torch(view, RunView, device)
 
 
 def presence_words_to_torch(words, device) -> torch.Tensor:

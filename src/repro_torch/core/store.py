@@ -923,16 +923,22 @@ class Snapshot:
     def all_run_records(self):
         """(src, dst, ts, marker, prop, fid) numpy record arrays of every
         visible run incl. MemGraph tiers (fid None)."""
+        return [tuple(x.cpu().numpy() for x in rec[:5]) + (rec[5],)
+                for rec in self.run_record_tensors()]
+
+    def run_record_tensors(self):
+        """``all_run_records`` as tensors on the store's device (the
+        analytics views read them there)."""
         recs = []
         for mg in self.mem_states:
             src, dst, ts, marker, prop, n = mg_mod.flush_arrays(mg)
             n = int(n)
-            recs.append(tuple(x[:n].cpu().numpy()
-                              for x in (src, dst, ts, marker, prop)) + (None,))
+            recs.append(tuple(x[:n] for x in (src, dst, ts, marker, prop))
+                        + (None,))
         for rf in self.l0_runs + [r for lvl in self.level_runs for r in lvl]:
             a = rf.ensure_loaded()
             ne = rf.ne
-            recs.append(tuple(x[:ne].cpu().numpy() for x in (
+            recs.append(tuple(x[:ne] for x in (
                 csr.expand_src(a), a.dst, a.ts, a.marker, a.prop))
                 + (rf.fid,))
         return recs

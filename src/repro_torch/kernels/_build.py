@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("presence", "merge_perm")
+SOURCES = ("presence", "merge_perm", "segment_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,3 +100,14 @@ def check(rc: int, name: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_vector(t, name: str, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous 1-D tensor of ``dtype`` on
+    ``device``: what a kernel's raw pointer needs."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")

@@ -28,7 +28,8 @@ class MergeStats:
     """Merge counters as a view over the port's metric registry: each key
     is backed by a monotonic ``merge_<key>_total`` counter."""
 
-    _KEYS = ("kernel_merge", "spine_build", "spine_splice", "spine_reuse")
+    _KEYS = ("kernel_merge", "host_lexsort", "spine_build", "spine_splice",
+             "spine_reuse")
 
     def __init__(self, registry=None) -> None:
         self._registry = registry if registry is not None else obs.REGISTRY

@@ -12,10 +12,32 @@ from typing import Dict
 from .merge import (lex_searchsorted, merge_perm, merge_perm_cuda,
                     merge_streams, tournament_merge)
 from .presence import presence_matrix, presence_matrix_cuda
+from . import segment_reduce as _segred
 
 #: Every kernel wrapper of the port, by kernel name.
 KERNELS = {"presence_matrix": presence_matrix_cuda,
-           "merge_perm": merge_perm_cuda}
+           "merge_perm": merge_perm_cuda,
+           "gather_segsum": _segred.gather_segsum_cuda,
+           "gather_segmin": _segred.gather_segmin_cuda}
+
+
+def gather_segsum(dst, seg_id, wt, x, *, n_out: int,
+                  use_pallas: bool = True):
+    """Fused message gather + CSR segment sum (analytics inner loop).
+    ``use_pallas`` keeps the reference's keyword: True is the kernel
+    wrapper (dispatch by device), False the plain version."""
+    if not use_pallas:
+        return _segred.gather_segsum_ref(dst, seg_id, wt, x, n_out)
+    return _segred.gather_segsum(dst, seg_id, wt, x, n_out=n_out)
+
+
+def gather_segmin(dst, seg_id, wt, x, *, n_out: int,
+                  use_pallas: bool = True):
+    """Segment-min relaxation (BFS / SSSP / CC inner loop); ``use_pallas``
+    as for ``gather_segsum``."""
+    if not use_pallas:
+        return _segred.gather_segmin_ref(dst, seg_id, wt, x, n_out)
+    return _segred.gather_segmin(dst, seg_id, wt, x, n_out=n_out)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -29,6 +51,7 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["presence_matrix", "merge_perm", "merge_streams",
+__all__ = ["gather_segsum", "gather_segmin", "presence_matrix",
+           "merge_perm", "merge_streams",
            "tournament_merge", "lex_searchsorted", "launch_counts",
            "reset_launches", "KERNELS"]

@@ -63,16 +63,6 @@ def presence_matrix_ref(words: torch.Tensor, offs: torch.Tensor,
     return hit
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D tensor")
-
-
 def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
                          masks: torch.Tensor,
                          queries: torch.Tensor) -> torch.Tensor:
@@ -80,10 +70,10 @@ def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError("presence_matrix_cuda needs CUDA tensors")
-    _check(words, "words", torch.int32, dev)
-    _check(offs, "offs", torch.int64, dev)
-    _check(masks, "masks", torch.int32, dev)
-    _check(queries, "queries", torch.int32, dev)
+    _build.check_vector(words, "words", torch.int32, dev)
+    _build.check_vector(offs, "offs", torch.int64, dev)
+    _build.check_vector(masks, "masks", torch.int32, dev)
+    _build.check_vector(queries, "queries", torch.int32, dev)
     if offs.shape != masks.shape:
         raise ValueError("offs and masks must have one entry per run")
     r, b = offs.shape[0], queries.shape[0]

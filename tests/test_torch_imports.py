@@ -24,6 +24,8 @@ def test_port_files_found():
     assert len(FILES) > 10
     assert (ROOT / "src" / "repro_torch" / "csrc" / "presence.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "merge_perm.cu").exists()
+    assert (ROOT / "src" / "repro_torch" / "csrc" /
+            "segment_reduce.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -2,10 +2,13 @@
 
 Inputs are made with numpy from fixed seeds and go through both packages:
 the JAX side runs its Pallas kernels in interpret mode, as its own tests do,
-and its pure references.  Tolerance: none — every output is an integer
-permutation, a bool matrix, or payload columns carried through unchanged.
-The ``cuda``-marked test holds each hand-written kernel against its plain
-version on the card and skips where there is none.
+and its pure references.  Tolerance: none for the presence matrix, the merge
+permutation and segment-min (integers, bools, payload carried through, and
+a min, which is exact in any order); segment-sum is held within rtol 1e-5 /
+atol 1e-4, the tolerance of ``tests/test_kernels.py``, because its float32
+additions run in another order in each implementation.  The
+``cuda``-marked tests hold each hand-written kernel against its plain
+version on the card and skip where there is none.
 """
 from types import SimpleNamespace
 
@@ -25,6 +28,7 @@ from repro_torch.core import filters  # noqa: E402
 from repro_torch.core.store import _stack_presence  # noqa: E402
 from repro_torch.kernels import merge, ops, presence  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
 I32MAX = np.iinfo(np.int32).max
 
@@ -189,11 +193,113 @@ def test_tournament_merge_matches_jax(k):
             assert torch.equal(g, t)
 
 
+# ---------------------------------------------------------- segment reduce
+SEG_TOL = dict(rtol=1e-5, atol=1e-4)   # tests/test_kernels.py's segsum tol
+
+
+def _seg_case(seed, e, v, *, min_wt=False, n_out=None):
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.integers(0, v, e)).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    if min_wt:
+        wt = rng.uniform(0, 2, e).astype(np.float32)
+    else:
+        wt = rng.choice([1.0, -1.0, 0.0, 2.5], e).astype(np.float32)
+    x = rng.normal(size=v).astype(np.float32)
+    return dst, seg, wt, x, v if n_out is None else n_out
+
+
+def _both(kind, dst, seg, wt, x, n_out):
+    """(port's plain version, JAX Pallas in interpret mode, JAX ref)."""
+    t = [torch.from_numpy(a) for a in (dst, seg, wt, x)]
+    j = [jnp.asarray(a) for a in (dst, seg, wt, x)]
+    port = getattr(ops, f"gather_{kind}")(*t, n_out=n_out).numpy()
+    pallas = np.asarray(getattr(jops, f"gather_{kind}")(*j, n_out=n_out))
+    jref_ = np.asarray(getattr(jref, f"gather_{kind}_ref")(*j, n_out))
+    return port, pallas, jref_
+
+
+@pytest.mark.parametrize("e,v", [(64, 8), (512, 64), (1000, 300),
+                                 (513, 7), (2048, 2048)])
+def test_gather_segsum_matches_jax(e, v):
+    case = _seg_case(e + v, e, v)
+    port, pallas, jref_ = _both("segsum", *case)
+    assert port.dtype == np.float32 and port.shape == (v,)
+    np.testing.assert_allclose(port, pallas, **SEG_TOL)
+    np.testing.assert_allclose(port, jref_, **SEG_TOL)
+
+
+@pytest.mark.parametrize("e,v", [(100, 20), (777, 100), (513, 7)])
+def test_gather_segmin_matches_jax(e, v):
+    port, pallas, jref_ = _both("segmin", *_seg_case(e + v, e, v,
+                                                     min_wt=True))
+    assert port.dtype == np.float32 and port.shape == (v,)
+    np.testing.assert_array_equal(port, pallas)
+    np.testing.assert_array_equal(port, jref_)
+
+
+def test_segsum_tombstone_annihilation():
+    """wt=-1 rows cancel wt=+1 rows of the same (seg, dst): the multilevel
+    analytics' core identity."""
+    rng = np.random.default_rng(5)
+    seg = np.array([0, 0, 1, 1], np.int32)
+    dst = np.array([5, 5, 6, 7], np.int32)
+    wt = np.array([1.0, -1.0, 1.0, 1.0], np.float32)
+    x = rng.normal(size=10).astype(np.float32)
+    port, pallas, jref_ = _both("segsum", dst, seg, wt, x, 2)
+    assert port[0] == 0.0 and abs(port[1] - (x[6] + x[7])) < 1e-5
+    np.testing.assert_allclose(port, pallas, **SEG_TOL)
+    np.testing.assert_allclose(port, jref_, **SEG_TOL)
+
+
+@pytest.mark.parametrize("kind", ["segsum", "segmin"])
+def test_segment_reduce_edge_cases_match_jax(kind):
+    """No edges at all; segments >= n_out (dropped) and empty segments."""
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+             np.zeros(0, np.float32), np.ones(5, np.float32), 4)
+    ragged = (np.arange(8, dtype=np.int32),
+              np.array([0, 1, 1, 3, 5, 6, 6, 9], np.int32),
+              np.linspace(0.5, 2.0, 8).astype(np.float32),
+              np.arange(1, 9, dtype=np.float32), 5)
+    for case in (empty, ragged):
+        port, pallas, jref_ = _both(kind, *case)
+        np.testing.assert_array_equal(port, pallas)
+        np.testing.assert_array_equal(port, jref_)
+    assert np.array_equal(_both(kind, *empty)[0],
+                          np.full(4, 0.0 if kind == "segsum" else 3.0e38,
+                                  np.float32))
+
+
+@pytest.mark.parametrize("kind", ["segsum", "segmin"])
+def test_segment_reduce_clips_like_reference(kind):
+    """Out-of-range dst clip to [0, len(x)-1]; negative seg_id count as
+    segment 0 (the reference's ``ref.py``)."""
+    dst = np.array([-3, 0, 9, 40, 2, 2], np.int32)
+    seg = np.array([-2, -1, 0, 1, 1, 7], np.int32)
+    wt = np.array([1.0, 2.0, 0.5, 1.5, 1.0, 1.0], np.float32)
+    x = np.arange(1, 11, dtype=np.float32)
+    port, _, jref_ = _both(kind, dst, seg, wt, x, 3)
+    np.testing.assert_array_equal(port, jref_)
+
+
+def test_segment_wrappers_reject_cpu_tensors():
+    dst, seg, wt, x, n = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                          else a for a in _seg_case(1, 50, 10))
+    for fn in (segred.gather_segsum_cuda, segred.gather_segmin_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(dst, seg, wt, x, n)
+
+
 def test_launch_counters_ignore_plain_calls():
     ops.reset_launches()
     a = tuple(torch.arange(8, dtype=torch.int32) for _ in range(3))
     ops.merge_perm(a, a, 8, 8)
-    assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0}
+    dst, seg, wt, x, n = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                          else a for a in _seg_case(1, 50, 10))
+    ops.gather_segsum(dst, seg, wt, x, n_out=n)
+    ops.gather_segmin(dst, seg, wt, x, n_out=n, use_pallas=False)
+    assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
+                                   "gather_segsum": 0, "gather_segmin": 0}
 
 
 @pytest.mark.cuda
@@ -218,4 +324,5 @@ def test_cuda_kernels_match_plain_versions():
     assert torch.equal(merge.merge_perm_cuda(a, b, 5000, 3000),
                        merge.merge_perm_plain(a, b, 5000, 3000))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"presence_matrix": 1, "merge_perm": 1}
+    assert ops.launch_counts() == {"presence_matrix": 1, "merge_perm": 1,
+                                   "gather_segsum": 0, "gather_segmin": 0}
