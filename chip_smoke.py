@@ -30,10 +30,23 @@ line):
    vertex 0, CC, SCAN and merge-free multi-level PageRank (10 iterations),
    each held against an independent numpy/scipy reference.
    ``gather_segsum`` and ``gather_segmin`` must launch in it.
-5. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
+5. Paper Fig 16 on that store: ``neighbors_batch`` of phase 3's queries
+   with the multi-level index off (the read spine probes every run), then
+   the legacy concat-then-lexsort read (``LSMG_READ_TOURNAMENT_K=0``) with
+   the index on and off, each equal to the oracle; then the per-run
+   no-index probe on a fresh snapshot: ``run_lookup_batch(use_pallas=True)``
+   on every run, byte-equal to its plain version, naming the slice the
+   multi-level index names on every L1+ run and never finding a vertex its
+   filter rules out on L0.  ``batched_searchsorted`` must launch once a run.
+6. Attention at the width of Qwen2-7B (28 query heads, 4 kv heads, head
+   dim 128) at 4,096 tokens in bfloat16, causal and not, and at
+   bench_kernels.py's float32 shape, through ``ops.attention(use_pallas=
+   True)``; each held against the plain version on the inputs upcast to
+   float32.  ``flash_attention`` must launch in it.
+7. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 and 4 and read just
+The launch counters are zeroed just before phases 3 to 6 and read just
 after each.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
@@ -56,8 +69,23 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT32_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate (data sheet)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, without
+# sparsity): the bound an attention kernel is held to.
+BF16_TC_FLOPS = 989e12
 SCALE = 22
 EDGEFACTOR = 16
+# Qwen2-7B's attention (src/repro/configs/qwen2_7b.py: 28 query heads, 4 kv
+# heads, head_dim 128), at the sequence length of the train_4k shape of
+# src/repro/configs/base.py.
+QWEN_HQ, QWEN_HKV, QWEN_D, QWEN_SEQ = 28, 4, 128, 4096
+# bench_kernels.py's full attention shape (B, Hq, Hkv, S, D), in float32.
+BENCH_ATTN = (1, 8, 2, 512, 128)
+ATT_F32_TOL = dict(rtol=1e-3, atol=2e-3)    # tests/test_kernels.py
+ATT_BF16_ATOL = 2e-2                          # 8 significant bits out
+# At 4,096 keys |o| is about 0.02, so atol 2e-2 alone cannot fail a wrong
+# kernel.  bfloat16 rounds the output by at most 2^-8 of its value; the
+# limit is twice that plus a floor for float32 summation over the keys.
+ATT_BF16_REL, ATT_BF16_FLOOR = 2.0 ** -7, 1e-4
 
 
 def smi_line() -> str:
@@ -84,11 +112,38 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, nops: float):
+def device_ms(fn, kernel: str = "", iters: int = 20) -> float:
+    """Mean device time a call of ``fn`` spends in the kernels whose name
+    holds ``kernel`` (in all its kernels by default), by ``torch.profiler``
+    over ``iters`` calls: the device's work alone, where CUDA events around
+    back-to-back calls would time the host's dispatch of calls shorter
+    than their Python."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                kernel in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if t is None else t
+            n += e.count
+    if n == 0:
+        raise AssertionError(f"the profiler saw no kernel named {kernel!r}")
+    return total / 1e3 / iters
+
+
+def bound(nbytes: float, nops: float, ops_per_s: float = INT32_OPS_PER_S):
     """Least time the card could take: bytes over the memory rate or
     operations over the peak rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -316,14 +371,7 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
         f"{t_spine * 1e3:.1f} ms; {len(queries)} queries in {n_chunks} "
         f"chunks, {resolve_ms:.1f} ms per chunk past the spine build, "
         f"{t_read * 1e3:.1f} ms in all")
-    voff_o, dst_o, _ = oracle
-    bad = [int(q) for q, g in zip(queries, out)
-           if not np.array_equal(g, dst_o[voff_o[q]:voff_o[q + 1]])]
-    n_out = sum(len(g) for g in out)
-    if bad:
-        raise AssertionError(
-            f"{len(bad)} of {len(queries)} adjacency lists differ from the "
-            f"last-writer-wins oracle, first {bad[:5]}")
+    n_out = check_oracle(queries, out, oracle, "the read")
     log(f"oracle: {len(queries)} adjacency lists ({n_out} edges, top "
         f"degree {int(deg[top[0]])}) equal to the numpy last-writer-wins "
         f"oracle")
@@ -337,6 +385,19 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
                 runs=runs, spine_ms=t_spine * 1e3,
                 resolve_ms_per_chunk=resolve_ms, queries=len(queries),
                 peak_gib=peak)
+
+
+def check_oracle(queries, out, oracle, what: str) -> int:
+    """Fail unless every adjacency list equals the last-writer-wins CSR's;
+    return the number of edges read."""
+    voff_o, dst_o, _ = oracle
+    bad = [int(q) for q, g in zip(queries, out)
+           if not np.array_equal(g, dst_o[voff_o[q]:voff_o[q + 1]])]
+    if bad:
+        raise AssertionError(
+            f"{what}: {len(bad)} of {len(queries)} adjacency lists differ "
+            f"from the last-writer-wins oracle, first {bad[:5]}")
+    return sum(len(g) for g in out)
 
 
 def profile_read(store, queries, dev, log=print):
@@ -647,6 +708,313 @@ def analytics_path(dev, store, oracle, seed, log=print, check=None):
                 launches=launches, rows=rows, runs=n_runs, edges=e_o)
 
 
+# ------------------------------------------------------------------ phase 5
+def _timed_read(store, queries, *, index: bool):
+    """One fresh snapshot's ``neighbors_batch`` of ``queries`` with the
+    multi-level index on or off (toggled on the store's config and put
+    back): (adjacency lists, wall seconds ending in a device synchronise,
+    read_runs_probed_total per query, read_filter_checked_total per query).
+    The first counts runs consulted per resolve chunk; the second counts
+    the (run, query) pairs that reach a presence filter."""
+    import torch
+    from repro_torch import obs
+    probes = obs.REGISTRY.counter("read_runs_probed_total",
+                                  store=store.obs_label)
+    checked = obs.REGISTRY.counter("read_filter_checked_total",
+                                   store=store.obs_label)
+    p0, c0 = probes.value, checked.value
+    snap = store.snapshot()
+    saved = store.cfg.use_multilevel_index
+    object.__setattr__(store.cfg, "use_multilevel_index", index)
+    try:
+        if store.device.type == "cuda":
+            torch.cuda.synchronize(store.device)
+        t0 = time.perf_counter()
+        out = snap.neighbors_batch(queries)
+        if store.device.type == "cuda":
+            torch.cuda.synchronize(store.device)
+        wall = time.perf_counter() - t0
+    finally:
+        object.__setattr__(store.cfg, "use_multilevel_index", saved)
+        snap.release()
+    return (out, wall, (probes.value - p0) / len(queries),
+            (checked.value - c0) / len(queries))
+
+
+def fig16_path(dev, store, queries, oracle, log=print):
+    """Paper Fig 16 on the phase-3 store: the read with the multi-level
+    index off, the legacy concat-then-lexsort read (``LSMG_READ_
+    TOURNAMENT_K=0``) with the index on and off, each held against the
+    last-writer-wins oracle; then the per-run no-index probe, one
+    ``run_lookup_batch(use_pallas=True)`` a run, held against its plain
+    version, the multi-level index (L1+) and the presence filters (L0)."""
+    import torch
+    from repro_torch.core import csr, index as mlindex, store as store_mod
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    res = {}
+    out, wall, ppq, cpq = _timed_read(store, queries, index=False)
+    check_oracle(queries, out, oracle, "no-index spine read")
+    res["spine_no_index"] = dict(wall_ms=wall * 1e3, probes_per_query=ppq,
+                                 filter_checked_per_query=cpq)
+    log(f"fig16 spine read, index off: {len(queries)} queries equal to the "
+        f"oracle in {wall * 1e3:.1f} ms; per query {ppq:.4f} runs probed, "
+        f"{cpq:.1f} (run, query) pairs filter-checked")
+    saved = store_mod._READ_TOURNAMENT_MAX_K
+    store_mod._READ_TOURNAMENT_MAX_K = 0
+    try:
+        for index in (True, False):
+            out, wall, ppq, cpq = _timed_read(store, queries, index=index)
+            what = f"legacy read, index {'on' if index else 'off'}"
+            check_oracle(queries, out, oracle, what)
+            res[f"legacy_index_{'on' if index else 'off'}"] = dict(
+                wall_ms=wall * 1e3, probes_per_query=ppq,
+                filter_checked_per_query=cpq)
+            log(f"fig16 {what}: {len(queries)} queries equal to the oracle in "
+                f"{wall * 1e3:.1f} ms; per query {ppq:.4f} runs probed, "
+                f"{cpq:.1f} (run, query) pairs filter-checked")
+    finally:
+        store_mod._READ_TOURNAMENT_MAX_K = saved
+
+    snap = store.snapshot()
+    try:
+        runs = [(rf, -1) for rf in snap.l0_runs] + [
+            (rf, col) for col, lvl in enumerate(snap.level_runs)
+            for rf in lvl]
+        arrays = [rf.ensure_loaded() for rf, _col in runs]
+        u = torch.from_numpy(queries.astype(np.int32)).to(dev)
+        sync()
+        t0 = time.perf_counter()
+        probed = [csr.run_lookup_batch(a, u, use_pallas=True)
+                  for a in arrays]
+        sync()
+        t_probe = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _first, _min, lvl_fid, lvl_off = mlindex.lookup_batch(snap.index, u)
+        sync()
+        t_index = time.perf_counter() - t0
+        # (a) plain mismatches, (b) index-found and offset mismatches.
+        bad = torch.zeros(3, dtype=torch.int64, device=dev)
+        n_found = torch.zeros((), dtype=torch.int64, device=dev)
+        l0_bad = 0
+        for (rf, col), a, (f, st, en) in zip(runs, arrays, probed):
+            f2, st2, en2 = csr.run_lookup_batch(a, u, use_pallas=False)
+            bad[0] += (f != f2).sum() + (st != st2).sum() + (en != en2).sum()
+            n_found += f.sum()
+            if col >= 0:
+                named = lvl_fid[:, col] == rf.fid
+                bad[1] += (f != named).sum()
+                bad[2] += (f & (st != lvl_off[:, col])).sum()
+            elif rf.presence is not None:
+                # (c) no false negatives: found implies the filter's maybe.
+                maybe = rf.presence.might_contain(queries)
+                l0_bad += int((f.cpu().numpy() & ~maybe).sum())
+        bad = bad.tolist()
+    finally:
+        snap.release()
+    n_l0 = sum(col < 0 for _rf, col in runs)
+    if any(bad) or l0_bad:
+        raise AssertionError(
+            f"per-run probe: {bad[0]} kernel/plain mismatches, {bad[1]} "
+            f"found/index mismatches, {bad[2]} offset mismatches (L1+), "
+            f"{l0_bad} found but filtered out (L0)")
+    largest = arrays[max(range(len(runs)), key=lambda i: runs[i][0].nv)]
+    res["probe"] = dict(runs=len(runs), l0_runs=n_l0,
+                        found=int(n_found), probe_ms=t_probe * 1e3,
+                        index_lookup_ms=t_index * 1e3)
+    log(f"fig16 per-run probe: {len(runs)} runs ({n_l0} L0) x {len(queries)}"
+        f" queries, {int(n_found)} (vertex, run) pairs found; byte-equal to "
+        f"the plain version, found and offsets equal to the multi-level "
+        f"index on every L1+ run, no found vertex filtered out on L0")
+    log(f"fig16 probe pass {t_probe * 1e3:.1f} ms (one launch a run) against"
+        f" mlindex.lookup_batch {t_index * 1e3:.3f} ms for the same queries "
+        f"(host clock, each ending in a synchronise)")
+    return res, largest, u
+
+
+def check_lookup(run, u):
+    """batched_searchsorted against its plain version on the card, on the
+    largest run of the probe pass and the phase's queries."""
+    import torch
+    from repro_torch.kernels import lookup
+    keys, nk = run.vkeys, run.nv
+    got = lookup.batched_searchsorted_cuda(keys, u, nk)
+    want = lookup.batched_searchsorted_ref(keys, u, nk)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"batched_searchsorted differs from plain: {err}")
+    n, nq = int(nk), u.shape[0]
+    # keys[:n] and the queries read once, the insertion points written once;
+    # a bisection step is a compare, a select and an add or shift (~4 ops).
+    t_bound, by = bound(4 * n + 8 * nq + 4, 4 * nq * max(n.bit_length(), 1))
+    head = keys[:n]
+
+    def kern():
+        return lookup.batched_searchsorted_cuda(keys, u, nk)
+
+    def plain():
+        return lookup.batched_searchsorted_ref(keys, u, nk)
+
+    def lib():
+        return torch.searchsorted(head, u)
+
+    # The kernel runs for a few µs, less than its wrapper's Python, so the
+    # row's times are device times from the profiler: CUDA events around
+    # back-to-back calls would time the host's dispatch instead.
+    return dict(
+        name="batched_searchsorted", route="cuda",
+        source="src/repro_torch/csrc/lookup.cu",
+        replaces="src/repro/kernels/lookup.py:48",
+        max_abs_err=err, verdict="byte-equal to plain",
+        ms=device_ms(kern, "searchsorted_kernel", iters=50),
+        plain_ms=device_ms(plain),
+        bound_ms=t_bound, bound_by=by,
+        library_ms=device_ms(lib, "searchsorted_cuda_kernel", iters=50),
+        shape=f"n_keys={n} (cap {keys.shape[0]}), nq={nq}",
+        note=f"times are device times a call (torch.profiler); a call by "
+             f"CUDA events, host dispatch included: kernel "
+             f"{time_ms(kern, iters=50):.4f} ms, plain "
+             f"{time_ms(plain, iters=20):.4f} ms, torch.searchsorted "
+             f"{time_ms(lib, iters=50):.4f} ms")
+
+
+# ------------------------------------------------------------------ phase 6
+def attention_inputs(dev, seed):
+    """Random q, k, v from a seed: Qwen2-7B's heads at 4096 tokens in
+    bfloat16, and bench_kernels.py's float32 shape."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+
+    def rnd(b, h, s, d, dtype):
+        return torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+
+    qwen = tuple(rnd(1, h, QWEN_SEQ, QWEN_D, torch.bfloat16)
+                 for h in (QWEN_HQ, QWEN_HKV, QWEN_HKV))
+    b, hq, hkv, s, d = BENCH_ATTN
+    bench = tuple(rnd(b, h, s, d, torch.float32) for h in (hq, hkv, hkv))
+    return qwen, bench
+
+
+def attention_path(qwen, bench, log=print):
+    """The attention operator through its entry point: causal and
+    non-causal at the Qwen2-7B shape in bfloat16, causal at the bench
+    shape in float32."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = dict(
+        causal=ops.attention(*qwen, causal=True, use_pallas=True),
+        noncausal=ops.attention(*qwen, causal=False, use_pallas=True),
+        f32=ops.attention(*bench, causal=True, use_pallas=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, o in outs.items():
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"attention {name}: non-finite output")
+    log(f"attention: 3 calls through ops.attention(use_pallas=True) in "
+        f"{wall * 1e3:.1f} ms (host clock, ending in a synchronise)")
+    return outs
+
+
+def bf16_check(got, want):
+    """(max |got - want|, largest ratio of |got - want| to its limit
+    2^-7 |want| + 1e-4, whether both atol 2e-2 and that limit hold)."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ratio = float((diff / (ATT_BF16_REL * want.abs()
+                           + ATT_BF16_FLOOR)).max())
+    return err, ratio, err <= ATT_BF16_ATOL and ratio <= 1.0
+
+
+def check_attention(qwen, bench, outs, log=print):
+    """flash_attention against its plain version on the same inputs upcast
+    to float32 (bfloat16: atol 2e-2 and, elementwise, 2^-7 |want| + 1e-4;
+    float32: rtol 1e-3 / atol 2e-3), with a planted fault that the
+    bfloat16 check must reject; times of kernel, plain version and SDPA at
+    the Qwen2-7B causal shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    errs, ratios = {}, {}
+    for name, inputs, causal in (("causal", qwen, True),
+                                 ("noncausal", qwen, False),
+                                 ("f32", bench, True)):
+        want = flash.mha_ref(*(t.float() for t in inputs), causal=causal)
+        got = outs[name].float()
+        if name == "f32":
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, **ATT_F32_TOL)
+        else:
+            err, ratios[name], ok = bf16_check(got, want)
+        errs[name] = err
+        if name == "noncausal":
+            # The planted fault: the non-causal output with one key of
+            # 4,096 left out, rounded to bfloat16 as the kernel's output
+            # is.  atol 2e-2 alone passes it; the check must reject it.
+            q, k, v = (t.float() for t in inputs)
+            keep = torch.ones(k.shape[2], dtype=torch.bool, device=k.device)
+            keep[2048] = False
+            bad = flash.mha_ref(q, k[:, :, keep], v[:, :, keep],
+                                causal=False).to(torch.bfloat16).float()
+            p_err, p_ratio, p_ok = bf16_check(bad, want)
+            del q, k, v, bad
+            if p_ok:
+                raise AssertionError(
+                    f"the bf16 check passed a planted fault: max abs err "
+                    f"{p_err:.3e}, {p_ratio:.2f} of the scaled limit")
+            log(f"attention check rejects a planted fault (key 2048 left "
+                f"out, non-causal): max abs err {p_err:.3e} (within "
+                f"atol {ATT_BF16_ATOL} alone: {p_err <= ATT_BF16_ATOL}), "
+                f"{p_ratio:.2f} of the scaled limit")
+        del want
+        if not ok:
+            raise AssertionError(f"flash_attention {name} differs from "
+                                 f"plain: max abs err {err:.3e}, "
+                                 f"{ratios.get(name, 0.0):.2f} of the "
+                                 f"bf16 scaled limit")
+    log(f"attention check: max abs err against the float32 plain version "
+        f"{errs}, largest share of the bf16 scaled limit {ratios} (bounds: "
+        f"bf16 atol {ATT_BF16_ATOL} and 2^-7 |want| + {ATT_BF16_FLOOR}, "
+        f"f32 {ATT_F32_TOL})")
+    q, k, v = qwen
+    b, hq, s, d = q.shape
+    flops = 4 * b * hq * s * s * d / 2          # causal: half the pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_bound, by = bound(nbytes, flops, BF16_TC_FLOPS)
+    ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=True),
+                 iters=5, warmup=1)
+    nc_ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v,
+                                                       causal=False),
+                    iters=3, warmup=1)
+    f32_ms = time_ms(lambda: flash.flash_attention_cuda(*bench, causal=True),
+                     iters=10)
+    library = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    plain = time_ms(lambda: flash.mha_ref(q, k, v, causal=True), iters=3,
+                    warmup=1)
+    log(f"attention times: non-causal {nc_ms:.3f} ms at the Qwen2-7B shape,"
+        f" causal float32 {f32_ms:.3f} ms at {BENCH_ATTN}")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:64",
+        max_abs_err=errs["causal"],
+        verdict=f"within atol {ATT_BF16_ATOL} and 2^-7 |want| + "
+                f"{ATT_BF16_FLOOR} of the float32 plain version",
+        ms=ms, plain_ms=plain, bound_ms=t_bound, bound_by=by,
+        library_ms=library,
+        shape=f"B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} bf16 causal",
+        extra=dict(noncausal_ms=nc_ms, f32_ms=f32_ms, errs=errs,
+                   limit_shares=ratios))
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -672,6 +1040,9 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     smi = smi_line()
     dev = torch.device("cuda", 0)
+    # The plain versions' float32 products in full float32, as the
+    # reference's tolerances assume (PyTorch's default, stated here).
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -721,9 +1092,44 @@ def main(argv=None) -> int:
     rows += an.pop("rows")
     print(f"main path (analytics): {json.dumps(an)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    f16, largest, u = fig16_path(dev, store, queries, oracle)
+    launches["fig16"] = ops.launch_counts()
+    print(f"main path (fig16) launches: {launches['fig16']}")
+    need_launches(launches["fig16"], ("batched_searchsorted",),
+                  "the Fig 16 path")
+    if launches["fig16"]["batched_searchsorted"] != f16["probe"]["runs"]:
+        raise AssertionError("batched_searchsorted did not launch once a run")
+    rows.append(check_lookup(largest, u))
+    print(f"main path (fig16): {json.dumps(f16)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del store, u, largest
+
+    qwen, bench = attention_inputs(dev, args.seed)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = attention_path(qwen, bench)
+    launches["attention"] = ops.launch_counts()
+    print(f"main path (attention) launches: {launches['attention']}")
+    need_launches(launches["attention"], ("flash_attention",),
+                  "the attention path")
+    rows.append(check_attention(qwen, bench, outs))
+    print(f"main path (attention): phase {time.perf_counter() - t0:.1f} s")
+    for r in rows[-2:]:
+        lib = f"{r['library_ms']:.3f} ms"
+        print(f"kernel {r['name']} ({r['shape']}): {r['verdict']} (max abs "
+              f"err {r['max_abs_err']}); {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {lib} [{smi}]")
+        if "note" in r:
+            print(f"kernel {r['name']}: {r['note']} [{smi}]")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     phase_of = {"presence_matrix": "store", "merge_perm": "store",
-                "gather_segsum": "analytics", "gather_segmin": "analytics"}
+                "gather_segsum": "analytics", "gather_segmin": "analytics",
+                "batched_searchsorted": "fig16",
+                "flash_attention": "attention"}
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[phase_of[r["name"]]][r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",

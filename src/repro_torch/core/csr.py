@@ -79,6 +79,24 @@ def run_lookup(run: CSRRunArrays, v) -> Tuple[torch.Tensor, ...]:
     return found[0], start[0].to(_I32), end[0].to(_I32)
 
 
+def run_lookup_batch(run: CSRRunArrays, vs: torch.Tensor, *,
+                     use_pallas: bool = False):
+    """Vectorized `run_lookup`: (found, start, end) for a whole int32 query
+    vector in one binary-search pass; ``use_pallas`` takes the batched
+    bisection kernel (``kernels.lookup``, dispatch by device), which reads
+    ``run.nv`` on the device.  Pad slots (INVALID_VID) report not-found."""
+    if use_pallas:
+        from ..kernels import ops as kops
+        i = kops.batched_searchsorted(run.vkeys, vs, run.nv)
+    else:
+        i = torch.searchsorted(run.vkeys, vs)
+    i_c = i.clamp(max=run.vcap - 1).long()
+    found = (run.vkeys[i_c] == vs) & (vs != INVALID_VID)
+    start = torch.where(found, run.voff[i_c], 0).to(_I32)
+    end = torch.where(found, run.voff[i_c + 1], 0).to(_I32)
+    return found, start, end
+
+
 def map_run_to_queries(run: CSRRunArrays, vs: torch.Tensor) -> torch.Tensor:
     """Per EDGE record, the position of its source vertex in the sorted
     query vector vs — or B for records of non-queried vertices / pads."""

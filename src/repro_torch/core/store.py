@@ -52,6 +52,12 @@ def _read_filters_enabled() -> bool:
         "0", "false", "False")
 
 
+# 0 disables the tournament-merged read spine entirely: every resolve then
+# takes the legacy concat-then-lexsort path (an escape hatch, read once at
+# import as in the reference).
+_READ_TOURNAMENT_MAX_K = int(os.environ.get("LSMG_READ_TOURNAMENT_K", "8"))
+
+
 # Per-process store ordinal for metric labels (the port's own registry, so
 # no collision with the JAX package's stores in one process).
 _STORE_ORDINAL = itertools.count()
@@ -989,6 +995,7 @@ class Snapshot:
         offs_l, dst_l, prop_l = [np.zeros(1, np.int64)], [], []
         base = 0
         for lo in range(0, len(u), self._BATCH_CHUNK):
+            # _prefetch_range of the next chunk: with the durability slice.
             offs, dst, prop = self._resolve_batch(
                 u[lo:lo + self._BATCH_CHUNK], pad_to=chunk_pad)
             offs_l.append(offs[1:] + base)
@@ -1056,9 +1063,12 @@ class Snapshot:
         if bp < B:
             raise ValueError("pad_to below query count")
         dev = self.device
+        # _prefetch_range before the spine exists: with durability.
         u_pad = np.full(bp, INVALID_VID, np.int32)
         u_pad[:B] = u
         u_j = torch.from_numpy(u_pad).to(dev)
+        if _READ_TOURNAMENT_MAX_K <= 0:
+            return self._resolve_batch_legacy(u, u_j)
         bb = self._get_backbone()
         mem = self.state.mem
         have_mem = int(mem.ne) != 0
@@ -1103,12 +1113,80 @@ class Snapshot:
         parts = [tuple(x.cpu().numpy() for x in part) for part in parts]
         return self._finish_resolve(parts, n_run, B)
 
+    def _resolve_batch_legacy(self, u: np.ndarray, u_j: torch.Tensor):
+        """Per-resolve concat + one segmented lexsort (the pre-spine read
+        path, kept behind LSMG_READ_TOURNAMENT_K=0): the records of every
+        run with a visible query, and of the MemGraph tiers, annihilated
+        per (query, dst) in one sort."""
+        B = len(u)
+        bp = u_j.shape[0]
+        lo_q, hi_q = (int(u[0]), int(u[-1])) if B else (0, -1)
+        mems = [mg for mg in self.mem_states if int(mg.ne) != 0]
+        first, min_fid, lvl_fid, _ = mlindex.lookup_batch(self.index, u_j)
+        first_np, min_np = first.cpu().numpy(), min_fid.cpu().numpy()
+        lvl_np = lvl_fid.cpu().numpy()
+        use_filters = _read_filters_enabled()
+        store = self._store
+
+        def filter_vis(rf, vis):
+            # The run's presence filter (host hash) ANDed into its
+            # visibility row before the any() gate, so a run every query
+            # misses is skipped.  Rows the index names skip this: the
+            # multi-level index is exact per vertex.
+            if not use_filters or rf.presence is None:
+                return vis
+            pre = int(np.count_nonzero(vis[:B]))
+            vis = vis.copy()
+            vis[:B] &= rf.presence.might_contain(u)
+            store._obs_filter_checked.inc(pre)
+            store._obs_filter_skipped.inc(
+                pre - int(np.count_nonzero(vis[:B])))
+            return vis
+
+        runs: List[Tuple[RunFile, Optional[np.ndarray]]] = []
+        for rf in self.l0_runs:
+            if rf.nv == 0 or rf.max_vid < lo_q or rf.min_vid > hi_q:
+                continue
+            vis = ((rf.fid >= min_np)
+                   & ((first_np == INVALID_VID) | (rf.fid >= first_np)))
+            vis = filter_vis(rf, vis)
+            if vis[:B].any():
+                runs.append((rf, vis))
+        if self.cfg.use_multilevel_index:
+            for col, lvl in enumerate(self.level_runs):
+                for rf in lvl:
+                    if rf.nv == 0:
+                        continue
+                    vis = lvl_np[:, col] == rf.fid
+                    if vis[:B].any():
+                        runs.append((rf, vis))
+        else:
+            # Ablation: no index (Fig 16 baseline) — every run whose vertex
+            # range meets the queries' is probed, past its filter.
+            for lvl in self.level_runs:
+                for rf in lvl:
+                    if rf.nv == 0 or rf.max_vid < lo_q or rf.min_vid > hi_q:
+                        continue
+                    vis = filter_vis(rf, np.ones(bp, bool))
+                    if not vis[:B].any():
+                        continue
+                    runs.append((rf, vis if use_filters
+                                 and rf.presence is not None else None))
+        store._obs_read_probes.inc(len(runs) + len(mems))
+        if not mems and not runs:
+            return (np.zeros(B + 1, np.int64), np.empty(0, np.int64),
+                    np.empty(0, np.float32))
+        q, d, p, live, n_run = _merge_lexsort(mems, runs, u_j, self.tau, B)
+        idx = torch.nonzero(live).reshape(-1)
+        part = tuple(x[idx].cpu().numpy() for x in (q, d, p))
+        return self._finish_resolve([part], n_run, B)
+
     def _finish_resolve(self, parts, n_run: int, B: int):
-        """Combine the sealed-spine and active-tier live records into the
-        final (offsets, dst, prop).  The (qid, dst) pairs are disjoint
-        across parts and unique within each, so the sort is a
-        deterministic merge — byte-identical to annihilating one merged
-        stream."""
+        """Combine the live records of each part into the final (offsets,
+        dst, prop).  The (qid, dst) pairs are disjoint across parts and
+        unique within each, so the sort is a deterministic merge —
+        byte-identical to annihilating one merged stream.  One part (the
+        legacy path's) is already sorted by (qid, dst)."""
         self._store.io.analytics_read += n_run * _REC_BYTES
         ql = np.concatenate([p[0] for p in parts]).astype(np.int64)
         dl = np.concatenate([p[1] for p in parts]).astype(np.int64)
@@ -1237,6 +1315,18 @@ class Snapshot:
         return np.array(sorted(vs), np.int64)
 
 
+def _newest_per_pair(qid, dst, ts, marker, prop, tau: int, nq: int):
+    """Sort records by (query, dst, ts), a record of no query or newer than
+    τ keyed dead (INT32_MAX) so that it sorts to the tail, and mark the
+    newest record of each (query, dst) pair: (q, d, marker, prop, last)."""
+    qkey = torch.where((qid < nq) & (ts <= tau), qid, INVALID_VID).to(_I32)
+    order = csr.lexsort_edges(qkey, dst, ts)
+    q, d = qkey[order], dst[order]
+    last = (q != torch.roll(q, -1)) | (d != torch.roll(d, -1))
+    last[-1:] = True
+    return q, d, marker[order], prop[order], last
+
+
 def _mem_resolve(qid, dst, ts, marker, prop, tau: int, nq: int):
     """Annihilate the ACTIVE MemGraph tier's records per (query, dst): the
     newest τ-visible record of each pair wins (a tombstone winner hides the
@@ -1244,12 +1334,7 @@ def _mem_resolve(qid, dst, ts, marker, prop, tau: int, nq: int):
     (qid, dst) pair set holding ANY visible record, padded with INT32_MAX
     past ``n_present`` — the suppression probe for the sealed winners."""
     dead = INVALID_VID
-    qkey = torch.where((qid < nq) & (ts <= tau), qid, dead).to(_I32)
-    order = csr.lexsort_edges(qkey, dst, ts)
-    q, d = qkey[order], dst[order]
-    m, p = marker[order], prop[order]
-    last = (q != torch.roll(q, -1)) | (d != torch.roll(d, -1))
-    last[-1:] = True
+    q, d, m, p, last = _newest_per_pair(qid, dst, ts, marker, prop, tau, nq)
     present = last & (q < nq)
     live = present & ~m
     pidx = torch.nonzero(present).reshape(-1)
@@ -1260,6 +1345,53 @@ def _mem_resolve(qid, dst, ts, marker, prop, tau: int, nq: int):
     pd = torch.cat([d[pidx], fill])
     lidx = torch.nonzero(live).reshape(-1)
     return q[lidx], d[lidx], p[lidx], pq, pd, n_present
+
+
+def _run_query_records(run: csr.CSRRunArrays, u: torch.Tensor,
+                       vis_q: torch.Tensor):
+    """Flat (qid, dst, ts, marker, prop) of one run restricted to queried
+    vertices with per-query visibility vis_q (index / min-fid rules); qid
+    is len(u) for every other record."""
+    b = u.shape[0]
+    qid = csr.map_run_to_queries(run, u)
+    ok = (qid < b) & vis_q[qid.clamp(max=b - 1).long()]
+    return (torch.where(ok, qid, b).to(_I32), run.dst, run.ts, run.marker,
+            run.prop)
+
+
+def _merge_lexsort(mems, runs, u: torch.Tensor, tau: int, nq: int):
+    """Legacy merge: concat every source's records and run one segmented
+    lexsort (``_annihilate_batch``).  ``runs`` pairs each run with its
+    host visibility row over ``u`` (None: every query)."""
+    recs = [mg_mod.scan_vertices_batch(mg, u) for mg in mems]
+    n_mem = sum(int(r[0].shape[0]) for r in recs)
+    every = torch.ones(u.shape, dtype=torch.bool, device=u.device)
+    for rf, vis in runs:
+        vis_t = every if vis is None else torch.from_numpy(vis).to(u.device)
+        recs.append(_run_query_records(rf.ensure_loaded(), u, vis_t))
+    cols = [torch.cat([r[i] for r in recs]) for i in range(5)]
+    # Half-step buckets: the concat feeds the lexsort, this path's
+    # dominant (pad-length-linear) cost.
+    total = cols[0].shape[0]
+    pad = csr.quantize_cap(total, half_steps=True) - total
+    if pad:
+        cols = [torch.cat([c, torch.full((pad,), fill, dtype=c.dtype,
+                                         device=c.device)])
+                for c, fill in zip(cols, (INVALID_VID, 0, 0, False, 0.0))]
+    return _annihilate_batch(*cols, tau, nq, n_mem)
+
+
+def _annihilate_batch(qid, dst, ts, marker, prop, tau: int, nq: int,
+                      run_from: int):
+    """Segmented annihilation: one lexsort by (qid, dst, ts) over every
+    record of the batch; per (qid, dst) the newest ts <= τ wins and a
+    tombstone winner hides the edge.  Also returns the count of queried
+    run records (positions >= run_from), for the byte accounting."""
+    pos = torch.arange(qid.shape[0], device=qid.device)
+    n_run = int(((pos >= run_from) & (qid < nq)).sum())
+    q, d, m, p, last = _newest_per_pair(qid, dst, ts, marker, prop, tau, nq)
+    live = last & ~m & (q < nq)
+    return q, d, p, live, n_run
 
 
 def _suppressed(q, d, pq, pd, n_present: int) -> torch.Tensor:

@@ -12,13 +12,17 @@ from typing import Dict
 from .merge import (lex_searchsorted, merge_perm, merge_perm_cuda,
                     merge_streams, tournament_merge)
 from .presence import presence_matrix, presence_matrix_cuda
+from . import flash_attention as _flash
+from . import lookup as _lookup
 from . import segment_reduce as _segred
 
 #: Every kernel wrapper of the port, by kernel name.
 KERNELS = {"presence_matrix": presence_matrix_cuda,
            "merge_perm": merge_perm_cuda,
            "gather_segsum": _segred.gather_segsum_cuda,
-           "gather_segmin": _segred.gather_segmin_cuda}
+           "gather_segmin": _segred.gather_segmin_cuda,
+           "batched_searchsorted": _lookup.batched_searchsorted_cuda,
+           "flash_attention": _flash.flash_attention_cuda}
 
 
 def gather_segsum(dst, seg_id, wt, x, *, n_out: int,
@@ -40,6 +44,24 @@ def gather_segmin(dst, seg_id, wt, x, *, n_out: int,
     return _segred.gather_segmin(dst, seg_id, wt, x, n_out=n_out)
 
 
+def batched_searchsorted(keys, queries, n_keys, *, use_pallas: bool = True):
+    """Batched binary search (the no-index ablation probe); ``use_pallas``
+    as for ``gather_segsum``."""
+    if not use_pallas:
+        return _lookup.batched_searchsorted_ref(keys, queries, n_keys)
+    return _lookup.batched_searchsorted(keys, queries, n_keys)
+
+
+def attention(q, k, v, *, causal: bool = True, scale=None,
+              use_pallas: bool = False):
+    """Blocked attention.  As in the reference, the plain version is the
+    default; ``use_pallas=True`` is the kernel wrapper (dispatch by
+    device)."""
+    if not use_pallas:
+        return _flash.mha_ref(q, k, v, causal=causal, scale=scale)
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last ``reset_launches`` (plain-version
     calls on CPU tensors are not launches)."""
@@ -52,6 +74,7 @@ def reset_launches() -> None:
 
 
 __all__ = ["gather_segsum", "gather_segmin", "presence_matrix",
+           "batched_searchsorted", "attention",
            "merge_perm", "merge_streams",
            "tournament_merge", "lex_searchsorted", "launch_counts",
            "reset_launches", "KERNELS"]

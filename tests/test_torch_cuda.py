@@ -9,7 +9,12 @@ mapped to +0.0 first), segment-sum within rtol 1e-5 / atol 1e-4 (the
 tolerance of ``tests/test_kernels.py``: float atomics add in an order that
 changes from run to run), or byte-equal where every partial sum is exact.
 The analytics test runs one store on the card and one on the CPU from the
-same stream.  Every test skips where there is no card.
+same stream.  The batched search must equal its plain version exactly
+(integers).  Attention is held against the plain version on the same
+inputs upcast to float32: rtol 1e-3 / atol 2e-3 in float32 (the tolerance
+of ``tests/test_kernels.py``), atol 2e-2 in bfloat16 and float16, where the
+output is rounded to 8 or 11 significant bits.  Every test skips where
+there is no card.
 """
 import numpy as np
 import pytest
@@ -18,6 +23,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import analytics  # noqa: E402
 from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
+from repro_torch.core.types import INVALID_VID  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import lookup  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
@@ -90,7 +98,9 @@ def test_cuda_segment_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
                                    "gather_segsum": n_calls // 2 + 1,
-                                   "gather_segmin": n_calls // 2 + 1}
+                                   "gather_segmin": n_calls // 2 + 1,
+                                   "batched_searchsorted": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -154,3 +164,102 @@ def test_cuda_analytics_match_cpu_store():
     assert torch.equal(host(card["scan"][0]), cpu["scan"][0])
     torch.testing.assert_close(host(card["scan"][1]), cpu["scan"][1],
                                **SEG_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_searchsorted_matches_plain_version():
+    """The bisection kernel against its plain version: n_keys 0, 1, a
+    middle value and the full length (as an int and as a 0-d tensor on the
+    card); queries below, between, equal to and above the keys, INVALID_VID
+    queries, and query counts that are not multiples of 32."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    ops.reset_launches()
+    n_calls = 0
+    for cap, nq in [(1, 1), (64, 33), (1000, 257), (4096, 70_001)]:
+        keys = np.sort(rng.choice(1 << 20, cap, replace=False))
+        keys = keys.astype(np.int32) * 2           # odd queries fall between
+        queries = np.concatenate([
+            rng.integers(-5, 2 * (1 << 20) + 5, nq - nq // 2),
+            rng.choice(keys, nq // 2), [INVALID_VID, -(1 << 31)]])
+        rng.shuffle(queries)
+        k = torch.from_numpy(keys).to(dev)
+        q = torch.from_numpy(queries.astype(np.int32)).to(dev)
+        for n in sorted({0, 1, cap // 2, cap}):
+            for n_keys in (n, torch.tensor(n, dtype=torch.int32,
+                                           device=dev)):
+                got = lookup.batched_searchsorted_cuda(k, q, n_keys)
+                want = lookup.batched_searchsorted_ref(k, q, n_keys)
+                n_calls += 1
+                assert got.dtype == torch.int32
+                assert torch.equal(got, want), (cap, nq, n)
+                assert int(got.max()) <= n
+    padded = torch.full((100,), INVALID_VID, dtype=torch.int32, device=dev)
+    padded[:10] = torch.arange(0, 100, 10, device=dev)
+    q = torch.tensor([-3, 0, 35, 41, 95, 200], dtype=torch.int32, device=dev)
+    for n in (0, 1, 5, 10):
+        want = lookup.batched_searchsorted_ref(padded, q, n)
+        assert torch.equal(lookup.batched_searchsorted_cuda(padded, q, n),
+                           want)
+        n_calls += 1
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["batched_searchsorted"] == n_calls
+
+
+def _attention_case(rng, b, hq, hkv, sq, skv, d, dtype, dev):
+    def t(h, s):
+        x = rng.normal(size=(b, h, s, d)).astype(np.float32)
+        return torch.from_numpy(x).to(dev, dtype)
+    return t(hq, sq), t(hkv, skv), t(hkv, skv)
+
+
+ATT_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, dtype, causal)
+    (1, 4, 4, 128, 128, 32, torch.float32, True),       # GQA group 1
+    (2, 8, 2, 256, 256, 64, torch.bfloat16, True),      # group 4
+    (1, 7, 1, 128, 384, 128, torch.float16, True),      # group 7, Sq < Skv
+    (1, 4, 2, 384, 128, 64, torch.float32, True),       # Sq > Skv
+    (1, 4, 1, 256, 128, 128, torch.bfloat16, True),     # Sq > Skv
+    (1, 2, 1, 256, 128, 32, torch.float16, True),       # Sq > Skv
+    (1, 2, 2, 128, 256, 256, torch.float32, True),      # D 256
+    (1, 4, 2, 256, 256, 256, torch.bfloat16, False),    # non-causal
+    (2, 4, 4, 128, 256, 128, torch.float32, False),
+    (1, 2, 2, 256, 256, 32, torch.float16, False),
+    (1, 8, 2, 512, 128 * 4, 128, torch.float32, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATT_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_cuda_flash_attention_matches_plain_version(case):
+    b, hq, hkv, sq, skv, d, dtype, causal = case
+    dev = _card()
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = _attention_case(rng, b, hq, hkv, sq, skv, d, dtype, dev)
+    before = ops.launch_counts()["flash_attention"]
+    got = flash.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash.mha_ref(q.float(), k.float(), v.float(), causal=causal)
+    tol = (dict(rtol=1e-3, atol=2e-3) if dtype == torch.float32
+           else dict(rtol=0.0, atol=2e-2))
+    torch.testing.assert_close(got.float(), want, **tol)
+    via_ops = ops.attention(q, k, v, causal=causal, use_pallas=True)
+    assert torch.equal(via_ops, got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_unsupported_shapes():
+    dev = _card()
+    rng = np.random.default_rng(3)
+    q, k, v = _attention_case(rng, 1, 2, 2, 128, 128, 48, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash.flash_attention_cuda(q, k, v)
+    q, k, v = _attention_case(rng, 1, 3, 2, 128, 128, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash.flash_attention_cuda(q, k, v)
+    q, k, v = _attention_case(rng, 1, 2, 2, 192, 128, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        flash.flash_attention_cuda(q, k, v)

@@ -24,8 +24,9 @@ def test_port_files_found():
     assert len(FILES) > 10
     assert (ROOT / "src" / "repro_torch" / "csrc" / "presence.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "merge_perm.cu").exists()
-    assert (ROOT / "src" / "repro_torch" / "csrc" /
-            "segment_reduce.cu").exists()
+    for name in ("segment_reduce", "lookup", "flash_attention"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" /
+                f"{name}.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

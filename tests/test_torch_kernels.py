@@ -8,7 +8,9 @@ a min, which is exact in any order); segment-sum is held within rtol 1e-5 /
 atol 1e-4, the tolerance of ``tests/test_kernels.py``, because its float32
 additions run in another order in each implementation.  The
 ``cuda``-marked tests hold each hand-written kernel against its plain
-version on the card and skip where there is none.
+version on the card and skip where there is none.  The batched search is
+byte-equal (integers); where the reference's Pallas search departs from its
+own plain version, a test pins it.
 """
 from types import SimpleNamespace
 
@@ -26,7 +28,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import filters  # noqa: E402
 from repro_torch.core.store import _stack_presence  # noqa: E402
-from repro_torch.kernels import merge, ops, presence  # noqa: E402
+from repro_torch.kernels import lookup, merge, ops, presence  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
@@ -298,8 +300,72 @@ def test_launch_counters_ignore_plain_calls():
                           else a for a in _seg_case(1, 50, 10))
     ops.gather_segsum(dst, seg, wt, x, n_out=n)
     ops.gather_segmin(dst, seg, wt, x, n_out=n, use_pallas=False)
+    keys = torch.arange(0, 100, 10, dtype=torch.int32)
+    ops.batched_searchsorted(keys, keys, 5)
+    q = torch.zeros((1, 2, 128, 32))
+    ops.attention(q, q, q, use_pallas=True)
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
-                                   "gather_segsum": 0, "gather_segmin": 0}
+                                   "gather_segsum": 0, "gather_segmin": 0,
+                                   "batched_searchsorted": 0,
+                                   "flash_attention": 0}
+
+
+# ------------------------------------------------------------------- lookup
+def _padded_keys(rng, n, cap=1024):
+    keys = np.full(cap, I32MAX, np.int32)
+    keys[:n] = np.sort(rng.integers(0, 10000, n)).astype(np.int32)
+    return keys
+
+
+@pytest.mark.parametrize("n,q", [(5, 17), (1000, 100), (37, 513)])
+def test_batched_searchsorted_matches_jax(n, q):
+    """``tests/test_kernels.py``'s sweep: keys padded with INT32_MAX past
+    n, so the Pallas kernel, the reference's plain version and the port's
+    agree byte for byte (n as an int and as a 0-d tensor)."""
+    rng = np.random.default_rng(n * 31 + q)
+    keys = _padded_keys(rng, n)
+    queries = rng.integers(-5, 10005, q).astype(np.int32)
+    pallas = np.asarray(jops.batched_searchsorted(
+        jnp.asarray(keys), jnp.asarray(queries), n))
+    want = np.asarray(jref.searchsorted_ref(jnp.asarray(keys),
+                                            jnp.asarray(queries), n))
+    np.testing.assert_array_equal(pallas, want)
+    tk, tq = torch.from_numpy(keys), torch.from_numpy(queries)
+    for n_keys in (n, torch.tensor(n, dtype=torch.int32)):
+        got = ops.batched_searchsorted(tk, tq, n_keys)
+        assert got.dtype == torch.int32 and got.shape == (q,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            ops.batched_searchsorted(tk, tq, n_keys,
+                                     use_pallas=False).numpy(), want)
+
+
+@pytest.mark.parametrize("n_keys,pallas_want", [
+    (0, [0, 0, 1, 1, 1, 1]), (5, [0, 0, 4, 5, 6, 6])])
+def test_batched_searchsorted_pins_reference_overshoot(n_keys, pallas_want):
+    """A fault of the reference (ROADMAP, faults): with real keys past
+    n_keys, its Pallas bisection runs a fixed number of steps and returns
+    n_keys + 1 wherever keys[n_keys] < q.  The port computes the plain
+    version's definition, as ``searchsorted_ref`` does."""
+    keys = np.full(100, I32MAX, np.int32)
+    keys[:10] = np.arange(0, 100, 10)
+    queries = np.array([-3, 0, 35, 41, 95, 200], np.int32)
+    ref_ = np.asarray(jref.searchsorted_ref(jnp.asarray(keys),
+                                            jnp.asarray(queries), n_keys))
+    pallas = np.asarray(jops.batched_searchsorted(
+        jnp.asarray(keys), jnp.asarray(queries), n_keys))
+    got = lookup.batched_searchsorted_ref(torch.from_numpy(keys),
+                                          torch.from_numpy(queries), n_keys)
+    np.testing.assert_array_equal(got.numpy(), ref_)
+    assert int(got.max()) <= n_keys
+    np.testing.assert_array_equal(pallas, pallas_want)
+    assert int(pallas.max()) == n_keys + 1
+
+
+def test_lookup_wrapper_rejects_cpu_tensors():
+    keys = torch.arange(0, 100, 10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lookup.batched_searchsorted_cuda(keys, keys, 5)
 
 
 @pytest.mark.cuda
@@ -325,4 +391,6 @@ def test_cuda_kernels_match_plain_versions():
                        merge.merge_perm_plain(a, b, 5000, 3000))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"presence_matrix": 1, "merge_perm": 1,
-                                   "gather_segsum": 0, "gather_segmin": 0}
+                                   "gather_segsum": 0, "gather_segmin": 0,
+                                   "batched_searchsorted": 0,
+                                   "flash_attention": 0}

@@ -1,0 +1,209 @@
+"""The port's other read paths held against the JAX package's: the
+per-run batched lookup (``run_lookup_batch``, with the bisection kernel's
+plain version), the no-index ablation of paper Fig 16 on the read spine,
+and the legacy concat-then-lexsort read behind ``LSMG_READ_TOURNAMENT_K=0``
+(index on and off, one resolve and several chunks).
+
+The same stream goes through ``repro.core.LSMGraph`` and
+``repro_torch.core.LSMGraph(device="cpu")``; every read must be byte-equal
+between the packages (adjacency and props), equal to the scalar read, and
+leave equal I/O counters.  Tolerance: none (integers, bools and float32
+props carried through unchanged).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from conftest import small_store_cfg  # noqa: E402
+from repro.core import LSMGraph as JaxGraph  # noqa: E402
+from repro.core import StoreConfig as JaxConfig  # noqa: E402
+from repro.core import csr as jcsr  # noqa: E402
+from repro.core import store as jax_store  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
+from repro_torch.core import csr  # noqa: E402
+from repro_torch.core import store as port_store  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+def _pair(**kw):
+    kw = dataclasses.asdict(small_store_cfg(**kw))
+    return JaxGraph(JaxConfig(**kw)), LSMGraph(StoreConfig(**kw),
+                                                device="cpu")
+
+
+def _multi_tier_stores(seed):
+    """``tests/test_read_batch.py``'s store in both packages: MemGraph, L0
+    and L1 populated, with tombstones."""
+    stores = _pair(l0_run_limit=100)
+    for g in stores:
+        rng = np.random.default_rng(seed)
+        src = rng.integers(0, 500, 6000).astype(np.int32)
+        dst = rng.integers(0, 500, 6000).astype(np.int32)
+        g.insert_edges(src, dst, prop=np.arange(6000, dtype=np.float32))
+        di = rng.choice(6000, 400, replace=False)
+        g.delete_edges(src[di], dst[di])
+        g.flush_memgraph()
+        g.compact_l0()
+        g.insert_edges(rng.integers(0, 500, 700), rng.integers(0, 500, 700))
+        g.flush_memgraph()
+        g.insert_edges(rng.integers(0, 500, 150), rng.integers(0, 500, 150))
+        assert int(g.mem.ne) > 0 and g.levels[0] and g.levels[1]
+    return stores
+
+
+def _deep_stores(n_runs, seed):
+    """``tests/test_read_pipeline.py``'s deep store in both packages: n_runs
+    L0 runs and an active MemGraph."""
+    stores = _pair(l0_run_limit=n_runs + 64)
+    for g in stores:
+        rng = np.random.default_rng(seed)
+        for _ in range(n_runs):
+            g.insert_edges(rng.integers(0, 400, 400),
+                           rng.integers(0, 400, 400))
+            g.flush_memgraph()
+        g.insert_edges(rng.integers(0, 400, 200), rng.integers(0, 400, 200))
+        assert len(g.levels[0]) == n_runs
+    return stores
+
+
+def _reads(stores, vs, *, index=True, chunk=None):
+    """neighbors_batch (with props) of vs in both packages, held equal,
+    and the scalar reads of the first 40 queries, held equal to them."""
+    out, scalar = [], []
+    for g in stores:
+        snap = g.snapshot()
+        try:
+            object.__setattr__(snap.cfg, "use_multilevel_index", index)
+            if chunk is not None:
+                snap._BATCH_CHUNK = chunk     # instance override
+            out.append(snap.neighbors_batch(vs, return_props=True))
+            scalar.append([snap.neighbors_scalar(int(v)) for v in vs[:40]])
+        finally:
+            object.__setattr__(snap.cfg, "use_multilevel_index", True)
+            snap.release()
+    jax_out, port_out = out
+    assert len(jax_out) == len(port_out) == len(vs)
+    for v, (jd, jp), (pd, pp) in zip(vs, jax_out, port_out):
+        for a, b in ((jd, pd), (jp, pp)):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f"vertex {v}"
+    for (pd, _pp), js, ps in zip(port_out, *scalar):
+        np.testing.assert_array_equal(pd, js)
+        np.testing.assert_array_equal(pd, ps)
+    return port_out
+
+
+def _same(a, b):
+    for (ad, ap), (bd, bp) in zip(a, b):
+        np.testing.assert_array_equal(ad, bd)
+        np.testing.assert_array_equal(ap, bp)
+
+
+def _same_io(stores):
+    js, ps = stores
+    assert dataclasses.asdict(js.io) == ps.io.as_dict()
+
+
+@pytest.fixture
+def legacy(monkeypatch):
+    """Switch both packages to the legacy read path for one test."""
+    def on():
+        monkeypatch.setattr(jax_store, "_READ_TOURNAMENT_MAX_K", 0)
+        monkeypatch.setattr(port_store, "_READ_TOURNAMENT_MAX_K", 0)
+    return on
+
+
+# ------------------------------------------------------- run_lookup_batch
+def _lookup_run(kind):
+    rng = np.random.default_rng(9)
+    n = 500 if kind == "dense" else 0
+    src = np.sort(rng.integers(0, 100, 500)).astype(np.int32)
+    return jcsr.build_run_arrays(
+        jnp.asarray(src), jnp.asarray(rng.integers(0, 100, 500), jnp.int32),
+        jnp.asarray(np.arange(500), jnp.int32), jnp.zeros(500, bool),
+        jnp.zeros(500, jnp.float32), jnp.asarray(n, jnp.int32), vcap=256)
+
+
+@pytest.mark.parametrize("kind", ["dense", "empty"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_run_lookup_batch_matches_jax(kind, use_pallas):
+    """``tests/test_read_batch.py``'s per-run lookup, on a run and on an
+    empty run (nv = 0), carried across with ``convert``: (found, start,
+    end) byte-equal to the JAX package's and to the scalar lookup.  A pad
+    query (INVALID_VID) reports not-found."""
+    jrun = _lookup_run(kind)
+    prun = convert.csr_run_to_torch(jrun, "cpu")
+    assert (int(prun.nv) == 0) == (kind == "empty")
+    qs = np.r_[np.arange(-3, 110), [np.iinfo(np.int32).max]].astype(np.int32)
+    want = [np.asarray(x) for x in jcsr.run_lookup_batch(
+        jrun, jnp.asarray(qs), use_pallas=use_pallas)]
+    ops.reset_launches()
+    got = [x.numpy() for x in csr.run_lookup_batch(
+        prun, torch.from_numpy(qs), use_pallas=use_pallas)]
+    assert ops.launch_counts()["batched_searchsorted"] == 0   # CPU tensors
+    for w, g, name in zip(want, got, ("found", "start", "end")):
+        assert w.dtype == g.dtype and np.array_equal(w, g), name
+    assert not got[0][-1]
+    for i, v in enumerate(qs[:-1]):
+        f, s, e = csr.run_lookup(prun, int(v))
+        assert (bool(f), int(s), int(e)) == (bool(got[0][i]),
+                                             int(got[1][i]), int(got[2][i]))
+
+
+# ------------------------------------------------------------- read paths
+def test_no_index_batch_equals_scalar_matches_jax():
+    """``test_read_batch.py::test_batched_no_index_ablation``: the read
+    spine with the multi-level index off (every run probed) equals the
+    scalar read and the JAX package's, and the read with the index on."""
+    stores = _multi_tier_stores(seed=4)
+    vs = np.arange(0, 500, 3)
+    off = _reads(stores, vs, index=False)
+    _same(off, _reads(stores, vs))
+    _same_io(stores)
+
+
+@pytest.mark.parametrize("filters_on", ["1", "0"])
+def test_legacy_equals_spine_matches_jax(legacy, monkeypatch, filters_on):
+    """``test_read_pipeline.py::test_legacy_lexsort_path_equals_backbone``:
+    the legacy path (LSMG_READ_TOURNAMENT_K=0) answers as the spine path
+    does, in both packages, presence filters on and off."""
+    monkeypatch.setenv("LSMG_READ_FILTERS", filters_on)
+    stores = _deep_stores(4, seed=19)
+    vs = np.arange(0, 410, 2)
+    spine = _reads(stores, vs)
+    legacy()
+    _same(_reads(stores, vs), spine)
+    _same_io(stores)
+
+
+@pytest.mark.parametrize("filters_on", ["1", "0"])
+def test_legacy_no_index_matches_jax(legacy, monkeypatch, filters_on):
+    """The legacy path with the index off (paper Fig 16 baseline): every
+    L1+ run whose range meets the queries' is probed, past its filter."""
+    monkeypatch.setenv("LSMG_READ_FILTERS", filters_on)
+    stores = _multi_tier_stores(seed=6)
+    vs = np.arange(0, 520, 2)
+    spine = _reads(stores, vs)
+    legacy()
+    _same(_reads(stores, vs, index=False), spine)
+    _same(_reads(stores, vs), spine)
+    _same_io(stores)
+
+
+def test_legacy_chunked_matches_jax(legacy):
+    """The legacy path through ``_resolve_batch_chunked`` (queries above
+    the chunk bound stream through several resolves, here 9): the
+    stitched result equals the one-shot spine read."""
+    stores = _multi_tier_stores(seed=10)
+    vs = np.arange(0, 520)
+    spine = _reads(stores, vs)
+    legacy()
+    before = stores[1]._obs_resolve.count
+    _same(_reads(stores, vs, chunk=64), spine)
+    assert stores[1]._obs_resolve.count - before == 9
+    _same_io(stores)
