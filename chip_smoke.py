@@ -28,8 +28,11 @@ line):
    the two segment kernels against their plain versions on its CSR (not
    counted as launches), then PageRank (10 iterations), BFS and SSSP from
    vertex 0, CC, SCAN and merge-free multi-level PageRank (10 iterations),
-   each held against an independent numpy/scipy reference.
-   ``gather_segsum`` and ``gather_segmin`` must launch in it.
+   each held against an independent numpy/scipy reference.  The multi-run
+   segment sum is held against its plain version on every run view laid
+   end to end (not counted), and must launch once a sweep in multi-level
+   PageRank (11 launches).  ``gather_segsum``, ``gather_segmin`` and
+   ``gather_segsum_runs`` must launch in it.
 5. Paper Fig 16 on that store: ``neighbors_batch`` of phase 3's queries
    with the multi-level index off (the read spine probes every run), then
    the legacy concat-then-lexsort read (``LSMG_READ_TOURNAMENT_K=0``) with
@@ -42,7 +45,8 @@ line):
    dim 128) at 4,096 tokens in bfloat16, causal and not, and at
    bench_kernels.py's float32 shape, through ``ops.attention(use_pallas=
    True)``; each held against the plain version on the inputs upcast to
-   float32.  ``flash_attention`` must launch in it.
+   float32.  ``flash_attention`` must launch in it: the bfloat16 calls on
+   the tensor-core kernel, the float32 call on the CUDA-core one.
 7. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -447,13 +451,13 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-4   # tests/test_kernels.py's segsum tolerance
 # u = 6e-8).  A sum's error is at most its longest chain of additions times
 # u times the sum of |terms|.  The kernel adds at most 5 + 8 values inside a
 # warp range plus one atomic per 256-edge range, about 400 at the hub
-# (~100,000 edges), and the multi-level sum adds one partial per run,
-# about 2,000 at the hub: 2,000 x 6e-8 = 1.2e-4 for the worst vertex, so a
-# relative L1 bound of 1e-4 over all vertices, which low-degree vertices
-# dominate, leaves a wide margin.  SCAN's weight sums have positive terms:
-# a relative bound of 1e-4 holds for chains up to ~1,600.  SSSP adds one
-# float32 weight per hop, each rounded by at most half an ulp (2.4e-7 at
-# distances below 4): 1e-4 covers paths of over 400 hops.
+# (~100,000 edges), and the multi-level sum adds one atomic partial per
+# run, about 2,000 at the hub: 2,000 x 6e-8 = 1.2e-4 for the worst vertex,
+# so a relative L1 bound of 1e-4 over all vertices, which low-degree
+# vertices dominate, leaves a wide margin.  SCAN's weight sums have
+# positive terms: a relative bound of 1e-4 holds for chains up to ~1,600.
+# SSSP adds one float32 weight per hop, each rounded by at most half an ulp
+# (2.4e-7 at distances below 4): 1e-4 covers paths of over 400 hops.
 PR_REL_L1 = 1e-4
 SSSP_ATOL = 1e-4
 WSUM_RTOL = 1e-4
@@ -524,6 +528,57 @@ def check_segment_kernels(view, seed):
     return rows
 
 
+def check_segsum_runs(views, n, seed):
+    """gather_segsum_runs against its plain version on the card, at the
+    multi-level shape: every run view's records laid end to end, n_out = V.
+    The views' weights are +1, -1 and 0 and x holds integers in [-2, 2], so
+    every float32 partial sum is an exact integer: the kernel must meet
+    SEG_RTOL / SEG_ATOL and in fact equals the plain version."""
+    import torch
+    from repro_torch.analytics import run_batch
+    from repro_torch.kernels import segment_reduce as sr
+    batch = run_batch(views)
+    dst, seg, wt = batch.dst, batch.src, batch.wt
+    dev, e = dst.device, dst.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    x = torch.randint(-2, 3, (n,), generator=gen, device=dev).float()
+
+    def kern():
+        return sr.gather_segsum_runs_cuda(dst, seg, wt, x, n)
+
+    def plain():
+        return sr.gather_segsum_runs_ref(dst, seg, wt, x, n)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if n else 0.0
+    if not torch.allclose(got, want, rtol=SEG_RTOL, atol=SEG_ATOL):
+        raise AssertionError(f"gather_segsum_runs differs from plain: {err}")
+    exact = torch.equal(got, want)
+    # One PyTorch call for the same function: a sparse COO product over the
+    # records as they are (duplicates summed; the call coalesces them).
+    coo = torch.sparse_coo_tensor(torch.stack([seg.long(), dst.long()]), wt,
+                                  (n, n), check_invariants=False)
+    library = time_ms(lambda: torch.sparse.mm(coo, x[:, None]), iters=3,
+                      warmup=1)
+    del coo
+    # Bytes: dst, seg_id, wt read once (12 a record), x read once and y
+    # written once (8 a vertex); one multiply-add a record.
+    t_bound, by = bound(12 * e + 8 * n, 2 * e)
+    return dict(
+        name="gather_segsum_runs", route="cuda",
+        source="src/repro_torch/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce.py:57",
+        max_abs_err=err,
+        verdict=(f"within rtol {SEG_RTOL} / atol {SEG_ATOL} of plain"
+                 f"{' (byte-equal)' if exact else ''}"),
+        ms=time_ms(kern), device_ms=device_ms(kern),
+        plain_ms=time_ms(plain, iters=3, warmup=1),
+        bound_ms=t_bound, bound_by=by, library_ms=library,
+        shape=f"{len(views)} runs, {e} records end to end, n_out={n}")
+
+
 @contextlib.contextmanager
 def _uncounted():
     """Launches inside the block do not count: the counters are put back
@@ -556,10 +611,12 @@ def _reversed_bfs(src_o, dst_o, n, source):
         frontier[cand] = True
 
 
-def analytics_path(dev, store, oracle, seed, log=print, check=None):
+def analytics_path(dev, store, oracle, seed, log=print, check=None,
+                   check_runs=None):
     """Drive the port's analytics path on a fresh snapshot and hold each
     result against an independent reference.  ``check(view)`` runs on the
-    materialized CSR, outside the launch counts."""
+    materialized CSR and ``check_runs(views)`` on the multi-level views,
+    both outside the launch counts."""
     import torch
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
@@ -600,15 +657,32 @@ def analytics_path(dev, store, oracle, seed, log=print, check=None):
         step("cc", lambda: cc(view))
         step("scan_stats", lambda: scan_stats(view))
         views = step("multilevel_views", lambda: multilevel_views(snap))
+        if check_runs is not None:
+            with _uncounted():
+                rows += [check_runs(views)]
+        if cuda:
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         step("multilevel_pagerank", lambda: multilevel_pagerank(
             views, n_out=n, iters=10))
+        added = (torch.cuda.max_memory_allocated(dev) - base if cuda
+                 else 0)
         n_runs = len(views)
+        n_records = sum(rv.src.shape[0] for rv in views)
     finally:
         snap.release()
     for name in ("bfs", "sssp", "cc"):   # one segmin launch an iteration
         steps[name]["iterations"] = sum(steps[name]["launches"].values())
     steps["pagerank"]["iterations"] = 10
     steps["multilevel_pagerank"]["iterations"] = 10
+    ml_launches = steps["multilevel_pagerank"]["launches"]
+    if cuda and ml_launches != {"gather_segsum_runs": 11}:
+        raise AssertionError(f"multilevel_pagerank launched {ml_launches}, "
+                             f"not one gather_segsum_runs a sweep (11)")
+    log(f"multilevel_pagerank: {n_records} records of {n_runs} runs laid end"
+        f" to end; peak device memory above the views "
+        f"{added / 2**30:.3f} GiB")
     for name, st in steps.items():
         log(f"analytics {name}: {st['wall_s'] * 1e3:.1f} ms (host clock, "
             f"ends in a synchronise), iterations "
@@ -705,7 +779,8 @@ def analytics_path(dev, store, oracle, seed, log=print, check=None):
                            "iterations": v.get("iterations"),
                            "launches": v["launches"]}
                        for k, v in steps.items()},
-                launches=launches, rows=rows, runs=n_runs, edges=e_o)
+                launches=launches, rows=rows, runs=n_runs, edges=e_o,
+                run_records=n_records, multilevel_added_gib=added / 2**30)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -906,20 +981,32 @@ def attention_path(qwen, bench, log=print):
     non-causal at the Qwen2-7B shape in bfloat16, causal at the bench
     shape in float32."""
     import torch
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops
+    counts = flash.flash_attention_cuda.path_launches
+    calls = (("causal", qwen, True, "tensor_cores"),
+             ("noncausal", qwen, False, "tensor_cores"),
+             ("f32", bench, True, "cuda_cores"))
+    outs, took = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = dict(
-        causal=ops.attention(*qwen, causal=True, use_pallas=True),
-        noncausal=ops.attention(*qwen, causal=False, use_pallas=True),
-        f32=ops.attention(*bench, causal=True, use_pallas=True))
+    for name, inputs, causal, _ in calls:
+        before = dict(counts)
+        outs[name] = ops.attention(*inputs, causal=causal, use_pallas=True)
+        took[name] = [p for p in counts if counts[p] != before[p]]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for name, o in outs.items():
         if not bool(torch.isfinite(o).all()):
             raise AssertionError(f"attention {name}: non-finite output")
+    for name, inputs, _, want in calls:
+        if took[name] != [want]:
+            raise AssertionError(f"attention {name} ({inputs[0].dtype}, D "
+                                 f"{inputs[0].shape[-1]}) took {took[name]}"
+                                 f", not {want}")
     log(f"attention: 3 calls through ops.attention(use_pallas=True) in "
-        f"{wall * 1e3:.1f} ms (host clock, ending in a synchronise)")
+        f"{wall * 1e3:.1f} ms (host clock, ending in a synchronise); "
+        f"kernels {({k: v[0] for k, v in took.items()})}")
     return outs
 
 
@@ -999,8 +1086,9 @@ def check_attention(qwen, bench, outs, log=print):
         q, k, v, is_causal=True, enable_gqa=True), iters=10)
     plain = time_ms(lambda: flash.mha_ref(q, k, v, causal=True), iters=3,
                     warmup=1)
-    log(f"attention times: non-causal {nc_ms:.3f} ms at the Qwen2-7B shape,"
-        f" causal float32 {f32_ms:.3f} ms at {BENCH_ATTN}")
+    log(f"attention times: non-causal {nc_ms:.3f} ms at the Qwen2-7B shape "
+        f"(tensor cores), causal float32 {f32_ms:.3f} ms at {BENCH_ATTN} "
+        f"(CUDA cores)")
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -1010,7 +1098,8 @@ def check_attention(qwen, bench, outs, log=print):
                 f"{ATT_BF16_FLOOR} of the float32 plain version",
         ms=ms, plain_ms=plain, bound_ms=t_bound, bound_by=by,
         library_ms=library,
-        shape=f"B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} bf16 causal",
+        shape=(f"B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} bf16 causal, "
+               f"tensor cores"),
         extra=dict(noncausal_ms=nc_ms, f32_ms=f32_ms, errs=errs,
                    limit_shares=ratios))
 
@@ -1077,16 +1166,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     an = analytics_path(dev, store, oracle, args.seed,
                         check=lambda view: check_segment_kernels(
-                            view, args.seed))
+                            view, args.seed),
+                        check_runs=lambda views: check_segsum_runs(
+                            views, store.cfg.vmax, args.seed))
     launches["analytics"] = ops.launch_counts()
     print(f"main path (analytics) launches: {launches['analytics']}")
-    need_launches(launches["analytics"], ("gather_segsum", "gather_segmin"),
+    need_launches(launches["analytics"], ("gather_segsum", "gather_segmin",
+                                          "gather_segsum_runs"),
                   "the analytics path")
     for r in an["rows"]:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
+        dev_ms = (f" ({r['device_ms']:.3f} ms device)"
+                  if "device_ms" in r else "")
         print(f"kernel {r['name']} ({r['shape']}): {r['verdict']} (max abs "
-              f"err {r['max_abs_err']}); {r['ms']:.3f} ms, plain "
+              f"err {r['max_abs_err']}); {r['ms']:.3f} ms{dev_ms}, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib} [{smi}]")
     rows += an.pop("rows")
@@ -1128,12 +1222,14 @@ def main(argv=None) -> int:
     print(f"total {time.perf_counter() - t_all:.1f} s")
     phase_of = {"presence_matrix": "store", "merge_perm": "store",
                 "gather_segsum": "analytics", "gather_segmin": "analytics",
+                "gather_segsum_runs": "analytics",
                 "batched_searchsorted": "fig16",
                 "flash_attention": "attention"}
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[phase_of[r["name"]]][r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
+               | ({"device_ms": r["device_ms"]} if "device_ms" in r else {})
                for r in rows]
     print(json.dumps({"kernels": kernels}))
     print(smi)

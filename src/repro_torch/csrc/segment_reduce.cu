@@ -30,6 +30,28 @@
 // exact.  CUDA has no float atomicMin: the sign-aware integer trick below
 // (int atomicMin for a value >= 0, unsigned atomicMax for a negative one)
 // orders IEEE floats correctly.  A first kernel fills y with the identity.
+//
+// Multi-run segment sum (gather_segsum_runs_launch): the merge-free
+// multi-level PageRank of src/repro/analytics/multilevel.py::multilevel_spmv
+// calls the TPU kernel gather_segsum once per run and adds the partial
+// outputs.  Here every run's records are laid end to end (one concatenation
+// made once per PageRank or degree call by the caller: three flat arrays
+// that the kernel walks like one CSR; a table of per-run pointers would save
+// that copy, about 12 bytes a record, but every warp would first have to
+// find its run) and one launch computes
+//   y[s] = sum over every run r, every record e of r with src[e] == s,
+//          of wt[e] * x[dst[e]].
+// seg_id is sorted inside each run but falls at a run boundary, and a
+// source id recurs in other runs, so two things change from the single-run
+// kernel.  (1) The in-step reduction scans with segment flags (a lane ends a
+// segment when the next lane's id differs), not by comparing ids at a
+// distance, which is only right for sorted ids.  Equal ids on both sides of
+// a run boundary merge into one partial, which is still their sum.  (2)
+// Every segment partial goes through atomicAdd: no warp owns a segment.  The
+// fill of y happens once a sweep, not once a run, and the launch covers
+// every record, so 132 SMs have work.  The byte bound is 12 bytes a record
+// plus 8 a vertex; the atomics add one per segment piece, about one per 16
+// records on R-MAT scale 22.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -173,10 +195,80 @@ seg_reduce_kernel(const int32_t* __restrict__ dst,
   if (lane == 0) emit<Op>(y, open_seg, open_val, true, n_out);
 }
 
-template <class Op>
-int launch(const void* dst, const void* seg_id, const void* wt, const void* x,
-           void* y, long long n_edges, int n_x, int n_out, float fill,
-           void* stream) {
+// The multi-run segment sum: like seg_reduce_kernel<SumOp>, but seg_id is
+// sorted only within runs and every segment partial is added atomically.
+__global__ void __launch_bounds__(kThreads)
+seg_sum_runs_kernel(const int32_t* __restrict__ dst,
+                    const int32_t* __restrict__ seg_id,
+                    const float* __restrict__ wt, const float* __restrict__ x,
+                    float* __restrict__ y, long long n_edges, int n_x,
+                    int n_out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long begin = warp * kWarpEdges;
+  if (begin >= n_edges) return;  // whole warp: every lane agrees
+  int open_seg = -1;  // the segment holding the previous step's lane 31
+  float open_val = 0.0f;
+  for (int t = 0; t < kSubTiles; ++t) {
+    const long long base = begin + static_cast<long long>(t) * 32;
+    if (base >= n_edges) break;  // uniform across the warp
+    const long long i = base + lane;
+    // Lanes past the end carry INT_MAX (>= n_out: never written).
+    int s = INT_MAX;
+    float v = 0.0f;
+    if (i < n_edges) {
+      s = max(__ldg(seg_id + i), 0);
+      if (s < n_out) {
+        const int d = min(max(__ldg(dst + i), 0), n_x - 1);
+        v = __ldg(wt + i) * __ldg(x + d);
+      }
+    }
+    // Segmented suffix sum with flags: ends is true when a segment ends
+    // within [lane, lane + off); lane 31 always ends one.  Afterwards each
+    // lane holds the sum of its segment from itself to the segment's end.
+    const int s_next = __shfl_down_sync(kFull, s, 1);
+    bool ends = lane == 31 || s_next != s;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float vo = __shfl_down_sync(kFull, v, off);
+      const bool eo = __shfl_down_sync(kFull, ends, off);
+      if (!ends) {
+        v += vo;
+        ends = eo;
+      }
+    }
+    const int s_prev = __shfl_up_sync(kFull, s, 1);
+    const bool head = lane == 0 || s_prev != s;
+    const int s_first = __shfl_sync(kFull, s, 0);
+    const int s_last = __shfl_sync(kFull, s, 31);
+    const unsigned heads = __ballot_sync(kFull, head);
+    const int last_head = 31 - __clz(heads);
+    // The open segment continues into lane 0's, or is complete.
+    if (lane == 0 && open_seg >= 0) {
+      if (s_first == open_seg) {
+        v += open_val;
+      } else if (open_seg < n_out) {
+        atomicAdd(y + open_seg, open_val);
+      }
+    }
+    // Every segment but the one holding lane 31 is complete in this step.
+    if (head && lane != last_head && s < n_out) atomicAdd(y + s, v);
+    open_val = __shfl_sync(kFull, v, last_head);
+    open_seg = s_last;
+  }
+  if (lane == 0 && open_seg >= 0 && open_seg < n_out) {
+    atomicAdd(y + open_seg, open_val);
+  }
+}
+
+using SegKernel = void (*)(const int32_t*, const int32_t*, const float*,
+                          const float*, float*, long long, int, int);
+
+// Fill y with the identity, then run the reduction kernel over the edges.
+int launch(SegKernel kernel, const void* dst, const void* seg_id,
+           const void* wt, const void* x, void* y, long long n_edges, int n_x,
+           int n_out, float fill, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(y);
   if (n_out > 0) {
@@ -189,7 +281,7 @@ int launch(const void* dst, const void* seg_id, const void* wt, const void* x,
   if (n_edges > 0 && n_out > 0) {
     const long long warps = (n_edges + kWarpEdges - 1) / kWarpEdges;
     const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-    seg_reduce_kernel<Op><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         static_cast<const int32_t*>(dst), static_cast<const int32_t*>(seg_id),
         static_cast<const float*>(wt), static_cast<const float*>(x), out,
         n_edges, n_x, n_out);
@@ -203,14 +295,23 @@ extern "C" int gather_segsum_launch(const void* dst, const void* seg_id,
                                     const void* wt, const void* x, void* y,
                                     long long n_edges, int n_x, int n_out,
                                     void* stream) {
-  return launch<SumOp>(dst, seg_id, wt, x, y, n_edges, n_x, n_out, 0.0f,
-                       stream);
+  return launch(seg_reduce_kernel<SumOp>, dst, seg_id, wt, x, y, n_edges, n_x,
+                n_out, 0.0f, stream);
 }
 
 extern "C" int gather_segmin_launch(const void* dst, const void* seg_id,
                                     const void* wt, const void* x, void* y,
                                     long long n_edges, int n_x, int n_out,
                                     void* stream) {
-  return launch<MinOp>(dst, seg_id, wt, x, y, n_edges, n_x, n_out, kInf,
-                       stream);
+  return launch(seg_reduce_kernel<MinOp>, dst, seg_id, wt, x, y, n_edges, n_x,
+                n_out, kInf, stream);
+}
+
+// Every run's records laid end to end: seg_id sorted within each run.
+extern "C" int gather_segsum_runs_launch(const void* dst, const void* seg_id,
+                                         const void* wt, const void* x,
+                                         void* y, long long n_edges, int n_x,
+                                         int n_out, void* stream) {
+  return launch(seg_sum_runs_kernel, dst, seg_id, wt, x, y, n_edges, n_x,
+                n_out, 0.0f, stream);
 }

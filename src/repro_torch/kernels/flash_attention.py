@@ -6,10 +6,12 @@ Shapes keep the reference's layout: ``q`` [B, Hq, Sq, D], ``k`` and ``v``
 ``h // (Hq // Hkv)``.  With ``causal`` query row i sees key j only if
 ``j <= i + Skv - Sq``.  The output has ``q.dtype``.
 
-``flash_attention_cuda`` launches the hand-written kernel
+``flash_attention_cuda`` launches one of the two hand-written kernels of
 ``csrc/flash_attention.cu`` (float32, bfloat16 or float16; D in
 ``HEAD_DIMS``; both sequence lengths multiples of 128, as the reference
-asserts).  ``mha_ref`` is its plain version, the port of
+asserts).  Which one depends only on the dtype and D (``kernel_path``):
+bfloat16 and float16 at D 64 and 128 take the tensor-core kernel, the rest
+the CUDA-core one.  ``mha_ref`` is the plain version of both, the port of
 ``repro.kernels.ref.mha_ref``, for any D.  ``flash_attention`` picks by the
 device of the tensors it is given.
 """
@@ -25,6 +27,10 @@ from . import _build
 BLOCK = 128                     # the reference's tile: Sq, Skv multiples
 HEAD_DIMS = (32, 64, 128, 256)  # the kernel's template instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtypes and head dims of the tensor-core kernel (``flash_mma_kernel``).
+MMA_DTYPES = (torch.bfloat16, torch.float16)
+MMA_HEAD_DIMS = (64, 128)
+PATHS = ("tensor_cores", "cuda_cores")
 _NEG = -1e30
 
 
@@ -70,9 +76,18 @@ def check_shapes(q, k, v) -> None:
                          f"k {tuple(k.shape)}")
 
 
+def kernel_path(dtype: torch.dtype, d: int) -> str:
+    """The kernel ``flash_attention_cuda`` launches for inputs of ``dtype``
+    and head dim ``d``: ``"tensor_cores"`` or ``"cuda_cores"``."""
+    if dtype in MMA_DTYPES and d in MMA_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale=None) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    """Launch a kernel of ``csrc/flash_attention.cu`` on the current stream:
+    the tensor-core kernel or the CUDA-core one, as ``kernel_path`` says."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention_cuda needs CUDA tensors")
@@ -91,8 +106,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not {d}; the plain version mha_ref takes any")
     if max(b, hq, sq, skv) >= 1 << 31 or b > 65535 or hq > 65535:
         raise ValueError("shape too large for the kernel's grid")
+    path = kernel_path(q.dtype, d)
+    if path == "tensor_cores" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core kernel copies 16 bytes at a time: "
+                         "q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
-    fn = _build.load("flash_attention").flash_attention_launch
+    lib = _build.load("flash_attention")
+    fn = (lib.flash_attention_mma_launch if path == "tensor_cores"
+          else lib.flash_attention_launch)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -101,12 +122,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _DTYPES[q.dtype], b, hq, hkv, sq, skv, d, _scale(d, scale),
                 int(bool(causal)), stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({path})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.path_launches[path] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+#: Launches of each kernel since import, for logs; ``launches`` counts both
+#: and is the count ``ops.reset_launches`` zeroes.
+flash_attention_cuda.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -21,6 +21,7 @@ KERNELS = {"presence_matrix": presence_matrix_cuda,
            "merge_perm": merge_perm_cuda,
            "gather_segsum": _segred.gather_segsum_cuda,
            "gather_segmin": _segred.gather_segmin_cuda,
+           "gather_segsum_runs": _segred.gather_segsum_runs_cuda,
            "batched_searchsorted": _lookup.batched_searchsorted_cuda,
            "flash_attention": _flash.flash_attention_cuda}
 
@@ -33,6 +34,16 @@ def gather_segsum(dst, seg_id, wt, x, *, n_out: int,
     if not use_pallas:
         return _segred.gather_segsum_ref(dst, seg_id, wt, x, n_out)
     return _segred.gather_segsum(dst, seg_id, wt, x, n_out=n_out)
+
+
+def gather_segsum_runs(dst, seg_id, wt, x, *, n_out: int,
+                       use_pallas: bool = True):
+    """Segment sum over every run's records laid end to end (``seg_id``
+    sorted within each run), in one launch: the sum of one
+    ``gather_segsum`` a run.  ``use_pallas`` as for ``gather_segsum``."""
+    if not use_pallas:
+        return _segred.gather_segsum_runs_ref(dst, seg_id, wt, x, n_out)
+    return _segred.gather_segsum_runs(dst, seg_id, wt, x, n_out=n_out)
 
 
 def gather_segmin(dst, seg_id, wt, x, *, n_out: int,
@@ -73,7 +84,8 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["gather_segsum", "gather_segmin", "presence_matrix",
+__all__ = ["gather_segsum", "gather_segsum_runs", "gather_segmin",
+           "presence_matrix",
            "batched_searchsorted", "attention",
            "merge_perm", "merge_streams",
            "tournament_merge", "lex_searchsorted", "launch_counts",

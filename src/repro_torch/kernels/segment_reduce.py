@@ -10,7 +10,12 @@ versions (``repro.kernels.ref``), ``dst`` is clipped to ``[0, len(x) - 1]``,
 dropped: it adds 0 to a sum and 3.0e38 to a min.  A segment with no edge
 gets 0 or 3.0e38 (the float32 value of the reference's ``_INF``).
 
-``gather_seg*_cuda`` launch the hand-written kernel
+``gather_segsum_runs`` is the segment sum over many runs laid end to end
+(the merge-free multi-level PageRank): ``seg_id`` is sorted within each run
+only, and a source id may recur in any run; the result is the sum of one
+``gather_segsum`` a run.
+
+``gather_seg*_cuda`` launch the hand-written kernels of
 ``csrc/segment_reduce.cu``; ``gather_seg*_ref`` are the plain versions
 (``index_add_`` and ``scatter_reduce_(..., "amin")``); ``gather_seg*`` pick
 by the device of the tensors they are given.
@@ -53,6 +58,14 @@ def gather_segmin_ref(dst: torch.Tensor, seg_id: torch.Tensor,
     d, s, keep = _clipped(dst, seg_id, x, n_out)
     vals = wt.float() + x.float()[d]
     return y.scatter_reduce_(0, s, torch.where(keep, vals, INF), "amin")
+
+
+def gather_segsum_runs_ref(dst: torch.Tensor, seg_id: torch.Tensor,
+                           wt: torch.Tensor, x: torch.Tensor,
+                           n_out: int) -> torch.Tensor:
+    """Plain version of the multi-run segment sum: one ``index_add_`` over
+    every run's records laid end to end (an add does not need sorted ids)."""
+    return gather_segsum_ref(dst, seg_id, wt, x, n_out)
 
 
 def _launch(entry: str, dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
@@ -99,8 +112,18 @@ def gather_segmin_cuda(dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     return y
 
 
+def gather_segsum_runs_cuda(dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
+    """Launch the multi-run segment-sum kernel of ``csrc/segment_reduce.cu``
+    on the current stream, once over every run's records laid end to end:
+    float32[n_out]."""
+    y = _launch("gather_segsum_runs", dst, seg_id, wt, x, n_out)
+    gather_segsum_runs_cuda.launches += 1
+    return y
+
+
 gather_segsum_cuda.launches = 0
 gather_segmin_cuda.launches = 0
+gather_segsum_runs_cuda.launches = 0
 
 
 def gather_segsum(dst, seg_id, wt, x, *, n_out: int) -> torch.Tensor:
@@ -115,3 +138,10 @@ def gather_segmin(dst, seg_id, wt, x, *, n_out: int) -> torch.Tensor:
     if x.is_cuda:
         return gather_segmin_cuda(dst, seg_id, wt, x, n_out)
     return gather_segmin_ref(dst, seg_id, wt, x, n_out)
+
+
+def gather_segsum_runs(dst, seg_id, wt, x, *, n_out: int) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x.is_cuda:
+        return gather_segsum_runs_cuda(dst, seg_id, wt, x, n_out)
+    return gather_segsum_runs_ref(dst, seg_id, wt, x, n_out)

@@ -97,3 +97,14 @@ def test_flash_attention_wrapper_rejects_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _case(3, 1, 2, 2, 128, 128, 32))
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.float16, 64, "tensor_cores"), (torch.float16, 128, "tensor_cores"),
+    (torch.bfloat16, 32, "cuda_cores"), (torch.float16, 256, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")])
+def test_flash_attention_kernel_path_by_dtype_and_head_dim(dtype, d, path):
+    """Which kernel a CUDA call launches depends on dtype and D only."""
+    assert flash.kernel_path(dtype, d) == path

@@ -13,7 +13,12 @@ same stream.  The batched search must equal its plain version exactly
 (integers).  Attention is held against the plain version on the same
 inputs upcast to float32: rtol 1e-3 / atol 2e-3 in float32 (the tolerance
 of ``tests/test_kernels.py``), atol 2e-2 in bfloat16 and float16, where the
-output is rounded to 8 or 11 significant bits.  Every test skips where
+output is rounded to 8 or 11 significant bits; the tensor-core kernel is
+also held elementwise to 2^-7 |want| + 1e-4 (``chip_smoke.py``'s bf16
+limit: twice bfloat16's rounding of the output plus a floor for float32
+summation over the keys).  The multi-run segment sum must equal its plain
+version where every partial sum is an exact float32 integer, and match
+within rtol 1e-5 / atol 1e-4 on real-valued x.  Every test skips where
 there is no card.
 """
 import numpy as np
@@ -99,6 +104,7 @@ def test_cuda_segment_kernels_match_plain_versions():
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
                                    "gather_segsum": n_calls // 2 + 1,
                                    "gather_segmin": n_calls // 2 + 1,
+                                   "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "flash_attention": 0}
 
@@ -263,3 +269,146 @@ def test_cuda_flash_attention_rejects_unsupported_shapes():
     q, k, v = _attention_case(rng, 1, 2, 2, 192, 128, 64, torch.float32, dev)
     with pytest.raises(ValueError, match="multiples of 128"):
         flash.flash_attention_cuda(q, k, v)
+
+
+def _runs(rng, sizes, n_out, n_x, dev, *, real_x=False):
+    """Runs laid end to end, each sorted by source id: ids recurring in
+    every run, a run ending and the next beginning with the same id, empty
+    runs, -1 tombstones, zero weights, ids >= n_out and dst out of range."""
+    segs = [np.sort(rng.integers(0, n_out + 5, n)).astype(np.int32)
+            for n in sizes]
+    for a, b in zip(segs, segs[1:]):
+        if len(a) and len(b):
+            b[: max(len(b) // 8, 1)] = a[-1]
+            b.sort()
+    seg = np.concatenate(segs)
+    dst = rng.integers(-3, n_x + 3, seg.shape[0]).astype(np.int32)
+    wt = rng.choice([1.0, -1.0, 0.0, 1.0], seg.shape[0]).astype(np.float32)
+    x = (rng.normal(size=n_x) if real_x
+         else rng.integers(-2, 3, n_x)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (dst, seg, wt, x)]
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_runs_matches_plain_version():
+    """The multi-run segment sum against its plain version: 1,936 runs of
+    the multi-level shape's kind (small id ranges, recurring ids), single
+    records, empty runs and one run of 2,000,000 records; exact on integer
+    inputs (every float32 partial is an integer below 2**24), SEG_TOL on
+    real x; one launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    ops.reset_launches()
+    cases = [([0], 10, 10), ([5, 0, 1, 0, 7], 6, 4), ([33] * 40, 50, 50),
+             (list(rng.integers(0, 3000, 1936)), 100_000, 100_000),
+             ([2_000_000, 0, 300_000], 4096, 5000)]
+    n_calls = 0
+    for sizes, n_out, n_x in cases:
+        for real_x in (False, True):
+            args = _runs(rng, sizes, n_out, n_x, dev, real_x=real_x)
+            want = segred.gather_segsum_runs_ref(*args, n_out)
+            for got in (segred.gather_segsum_runs_cuda(*args, n_out),
+                        ops.gather_segsum_runs(*args, n_out=n_out)):
+                n_calls += 1
+                if real_x:
+                    torch.testing.assert_close(got, want, **SEG_TOL)
+                else:
+                    assert torch.equal(got + 0.0, want + 0.0), sizes[:5]
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_segsum_runs"] == n_calls
+    assert ops.launch_counts()["gather_segsum"] == 0
+
+
+def _limit_share(got, want):
+    """Largest ratio of |got - want| to 2^-7 |want| + 1e-4."""
+    return float(((got - want).abs() / (2.0 ** -7 * want.abs() + 1e-4))
+                 .max())
+
+
+MMA_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, dtype, causal)
+    (1, 4, 2, 512, 512, 128, torch.bfloat16, True),     # GQA 4/2
+    (1, 4, 2, 512, 512, 64, torch.float16, True),
+    (2, 4, 4, 256, 640, 64, torch.bfloat16, True),      # Sq < Skv
+    (1, 2, 1, 128, 1024, 128, torch.float16, True),     # Sq < Skv
+    (1, 4, 2, 512, 256, 128, torch.bfloat16, True),     # Sq > Skv
+    (1, 2, 2, 384, 128, 64, torch.float16, True),       # Sq > Skv
+    (1, 4, 2, 256, 768, 128, torch.bfloat16, False),    # non-causal
+    (1, 6, 3, 128, 512, 64, torch.float16, False),
+    (2, 8, 1, 256, 256, 128, torch.float16, False),
+    (1, 28, 4, 1024, 1024, 128, torch.bfloat16, True),  # Qwen2-7B heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MMA_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_cuda_flash_attention_tensor_cores(case):
+    """bfloat16 and float16 at D 64 and 128 take the tensor-core kernel and
+    stay within 2^-7 |want| + 1e-4 of the float32 plain version,
+    elementwise; rows that see no key (Sq > Skv, causal) give the mean of
+    v."""
+    b, hq, hkv, sq, skv, d, dtype, causal = case
+    dev = _card()
+    assert flash.kernel_path(dtype, d) == "tensor_cores"
+    rng = np.random.default_rng(sq * 7 + skv + d)
+    q, k, v = _attention_case(rng, b, hq, hkv, sq, skv, d, dtype, dev)
+    before = dict(flash.flash_attention_cuda.path_launches)
+    n0 = ops.launch_counts()["flash_attention"]
+    got = flash.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = flash.flash_attention_cuda.path_launches
+    assert after["tensor_cores"] == before["tensor_cores"] + 1
+    assert after["cuda_cores"] == before["cuda_cores"]
+    assert ops.launch_counts()["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash.mha_ref(q.float(), k.float(), v.float(), causal=causal)
+    share = _limit_share(got.float(), want)
+    assert share <= 1.0, share
+    torch.testing.assert_close(got.float(), want, rtol=0.0, atol=2e-2)
+    if causal and sq > skv:
+        blind = sq - skv                      # rows i with i + Skv - Sq < 0
+        mean = v.float().mean(dim=2, keepdim=True)
+        mean = mean.repeat_interleave(hq // hkv, dim=1)
+        share = _limit_share(got[:, :, :blind].float(),
+                             mean.expand(-1, -1, blind, -1))
+        assert share <= 1.0, share
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_path_by_dtype_and_head_dim():
+    """float32 at every D, and bfloat16/float16 at D 32 and 256, take the
+    CUDA-core kernel; which kernel runs depends on nothing else."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    for dtype, d, path in ((torch.float32, 64, "cuda_cores"),
+                           (torch.float32, 128, "cuda_cores"),
+                           (torch.bfloat16, 32, "cuda_cores"),
+                           (torch.float16, 256, "cuda_cores"),
+                           (torch.bfloat16, 64, "tensor_cores"),
+                           (torch.float16, 128, "tensor_cores")):
+        assert flash.kernel_path(dtype, d) == path
+        q, k, v = _attention_case(rng, 1, 2, 1, 128, 256, d, dtype, dev)
+        before = dict(flash.flash_attention_cuda.path_launches)
+        got = flash.flash_attention_cuda(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        after = flash.flash_attention_cuda.path_launches
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == path) for p in after}, (dtype, d)
+        want = flash.mha_ref(q.float(), k.float(), v.float(), causal=True)
+        tol = (dict(rtol=1e-3, atol=2e-3) if dtype == torch.float32
+               else dict(rtol=0.0, atol=2e-2))
+        torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_tensor_cores_need_aligned_inputs():
+    dev = _card()
+    rng = np.random.default_rng(6)
+    q, k, v = _attention_case(rng, 1, 2, 2, 128, 128, 64, torch.bfloat16,
+                              dev)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.flash_attention_cuda(shifted, k, v)

@@ -300,12 +300,14 @@ def test_launch_counters_ignore_plain_calls():
                           else a for a in _seg_case(1, 50, 10))
     ops.gather_segsum(dst, seg, wt, x, n_out=n)
     ops.gather_segmin(dst, seg, wt, x, n_out=n, use_pallas=False)
+    ops.gather_segsum_runs(dst, seg, wt, x, n_out=n)
     keys = torch.arange(0, 100, 10, dtype=torch.int32)
     ops.batched_searchsorted(keys, keys, 5)
     q = torch.zeros((1, 2, 128, 32))
     ops.attention(q, q, q, use_pallas=True)
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
                                    "gather_segsum": 0, "gather_segmin": 0,
+                                   "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "flash_attention": 0}
 
@@ -392,5 +394,6 @@ def test_cuda_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"presence_matrix": 1, "merge_perm": 1,
                                    "gather_segsum": 0, "gather_segmin": 0,
+                                   "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "flash_attention": 0}
