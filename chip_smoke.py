@@ -11,9 +11,10 @@ line):
    (one ``nvcc`` per source, all started together).
 2. The store's kernels against their plain PyTorch versions on the card, at
    the main path's shapes: the presence filter test on 2048 runs of real
-   filters and 16384 queries, and the merge permutation of 2**24 and 2**22
-   sorted key triples with duplicate keys.  Both must be byte-equal; the
-   kernel's time, the plain version's time and the least time the card
+   filters and 16384 queries, and the merge-path permutation of 2**24 and
+   2**22 sorted key triples with duplicate keys.  Both must be byte-equal;
+   the kernel's time (CUDA events, and device time by ``torch.profiler``
+   for the merge), the plain version's time and the least time the card
    could take (its bound) are printed.
 3. The store's write and read path at a realistic scale: Graph500 R-MAT
    scale 22, edgefactor 16 (A/B/C = 0.57/0.19/0.19), each edge carrying a
@@ -23,7 +24,12 @@ line):
    so the active MemGraph, L0, L1 and L2 are all live; then one snapshot
    and ``neighbors_batch`` on 65,536 random vertices plus the 64 of highest
    degree, compared exactly with a numpy last-writer-wins CSR of the whole
-   stream.  ``presence_matrix`` and ``merge_perm`` must launch in it.
+   stream.  ``presence_matrix`` must launch in it, and ``merge_pairs``
+   once a round of the spine's tournament (one more round for the sealed
+   MemGraph handoff when one is live); ``merge_perm`` must not launch.
+   Then, outside the launch counts, a profiled second read (spine rebuilt)
+   and the batched tournament over the store's own run streams, laid end
+   to end as the spine build lays them, byte-equal to its plain version.
 4. Analytics on a fresh snapshot of that store: ``materialize_csr``, then
    the two segment kernels against their plain versions on its CSR (not
    counted as launches), then PageRank (10 iterations), BFS and SSSP from
@@ -206,6 +212,28 @@ def _sorted_triples(n: int, gen, dev):
     return tuple(k[o].contiguous() for k in (k1, k2, k3))
 
 
+def time_ms_fresh(fn, make, iters: int = 5) -> float:
+    """Mean device time of ``fn(make())`` by CUDA events around ``fn``
+    alone, for a ``fn`` that overwrites its inputs: ``make`` gives fresh
+    ones before each call, outside the timed window."""
+    import torch
+    fn(make())
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        x = make()
+        torch.cuda.synchronize()
+        t0.record()
+        fn(x)
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+        del x
+    return total / iters
+
+
 def check_merge_perm(dev, seed):
     import torch
     from repro_torch.kernels import merge
@@ -230,6 +258,8 @@ def check_merge_perm(dev, seed):
         replaces="src/repro/kernels/merge.py:199",
         max_abs_err=err,
         ms=time_ms(lambda: merge.merge_perm_cuda(a, b, na, nb)),
+        device_ms=device_ms(lambda: merge.merge_perm_cuda(a, b, na, nb),
+                            kernel="perm_"),
         plain_ms=time_ms(lambda: merge.merge_perm_plain(a, b, na, nb),
                          iters=3, warmup=1),
         bound_ms=t_bound, bound_by=by, library_ms=None,
@@ -356,6 +386,15 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
     top = np.argsort(-deg, kind="stable")[:64]
     queries = np.unique(np.concatenate([
         rng.choice(cfg.vmax, n_queries, replace=False), top]))
+    # The spine's tournament: one round of merge_pairs per halving of the
+    # sealed runs, and one more when a sealed MemGraph rides the spine.
+    state = store._state
+    bad = {r.fid for r in state.degraded}
+    spine_runs = sum(1 for lvl in state.levels for rf in lvl
+                     if rf.nv > 0 and rf.fid not in bad)
+    handoff = state.mem_full is not None and int(state.mem_full.ne) != 0
+    spine_rounds = (spine_runs - 1).bit_length() + int(
+        handoff and spine_runs > 0)
     snap = store.snapshot()
     try:
         t0 = time.perf_counter()
@@ -386,9 +425,63 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
                 records=n_ops, deletes_dropped=n_dropped, ingest_s=t_ingest,
                 apply_s=apply_s, flush_s=flush.sum, compaction_s=comp_s,
                 flushes=flushes, compactions=compactions, level_sizes=sizes,
-                runs=runs, spine_ms=t_spine * 1e3,
+                runs=runs, spine_ms=t_spine * 1e3, spine_runs=spine_runs,
+                spine_rounds=spine_rounds,
                 resolve_ms_per_chunk=resolve_ms, queries=len(queries),
                 peak_gib=peak)
+
+
+def check_merge_pairs(store, log=print):
+    """The batched tournament over the store's own run streams, laid end to
+    end as the spine build lays them (L0, then L1 and deeper), against its
+    plain version on the same buffers and round tables: every column
+    byte-equal.  Times: CUDA events around the whole tournament (the round
+    kernels' enqueue included) and the round kernels' device time by
+    ``torch.profiler``, each call on fresh copies of the buffers, which the
+    kernel overwrites.  Bound: every record's keys and payload read once
+    and written once, the least a k-way merge moves."""
+    import torch
+    from repro_torch.core.store import _spine_run_streams
+    from repro_torch.kernels import merge
+    runs = [(rf, -1) for rf in store.levels[0] if rf.nv > 0] + [
+        (rf, col) for col, lvl in enumerate(store.levels[1:])
+        for rf in lvl if rf.nv > 0]
+    cols, caps = _spine_run_streams(runs)
+    plan = merge.merge_plan(caps)
+
+    def fresh():
+        return tuple(c.clone() for c in cols)
+
+    t0 = time.perf_counter()
+    want = merge.merge_pairs_plain(cols, plan)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = merge.merge_pairs_cuda(fresh(), plan)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"merge_pairs column {i} differs from "
+                                 f"plain")
+    del got, want
+    n = plan.n
+    rec = sum(c.element_size() for c in cols)
+    # One 3-key comparison (~5 ops) a record a round.
+    t_bound, by = bound(2 * rec * n, 5 * n * len(plan.rounds))
+    ms = time_ms_fresh(lambda c: merge.merge_pairs_cuda(c, plan), fresh)
+    dev_ms = device_ms(lambda: merge.merge_pairs_cuda(fresh(), plan),
+                       kernel="pairs_", iters=5)
+    log(f"merge_pairs: {len(caps)} run streams, {n} records of {rec} "
+        f"bytes, {len(plan.rounds)} rounds; a round's bound (every record "
+        f"read and written once) {t_bound:.4f} ms, device "
+        f"{dev_ms / len(plan.rounds):.4f} ms a round")
+    return dict(
+        name="merge_pairs", route="cuda",
+        source="src/repro_torch/csrc/merge_perm.cu",
+        replaces="src/repro/kernels/merge.py:199",
+        max_abs_err=0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+        shape=(f"{len(caps)} run streams laid end to end, {n} records, "
+               f"{len(plan.rounds)} rounds"))
 
 
 def check_oracle(queries, out, oracle, what: str) -> int:
@@ -1145,9 +1238,11 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     rows = [check_presence(dev, rng), check_merge_perm(dev, args.seed)]
     for r in rows:
+        dev_ms = (f" ({r['device_ms']:.3f} ms device)"
+                  if "device_ms" in r else "")
         print(f"kernel {r['name']} ({r['shape']}): byte-equal to plain; "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+              f"{r['ms']:.3f} ms{dev_ms}, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
 
     if args.edges != EDGEFACTOR << SCALE:
         print(f"reduced: edges {args.edges} of {EDGEFACTOR << SCALE}")
@@ -1155,12 +1250,26 @@ def main(argv=None) -> int:
     stats = main_path(dev, store_config(), args.edges, 1 << 16, args.seed)
     launches = {"store": ops.launch_counts()}
     print(f"main path (store) launches: {launches['store']}")
-    need_launches(launches["store"], ("presence_matrix", "merge_perm"),
+    need_launches(launches["store"], ("presence_matrix", "merge_pairs"),
                   "the store's path")
+    got_rounds = (launches["store"]["merge_pairs"],
+                  launches["store"]["merge_perm"])
+    if got_rounds != (stats["spine_rounds"], 0):
+        raise AssertionError(
+            f"the spine build launched merge_pairs {got_rounds[0]} times "
+            f"(want one a round: {stats['spine_rounds']}) and merge_perm "
+            f"{got_rounds[1]} times (want 0)")
     store, queries = stats.pop("store"), stats.pop("query_vertices")
     oracle = stats.pop("oracle")
     print(f"main path (store): {json.dumps(stats)}")
     profile_read(store, queries, dev)
+    with _uncounted():
+        rows.append(check_merge_pairs(store))
+    r = rows[-1]
+    print(f"kernel {r['name']} ({r['shape']}): byte-equal to plain; "
+          f"{r['ms']:.3f} ms ({r['device_ms']:.3f} ms device), plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), library none [{smi}]")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1221,6 +1330,7 @@ def main(argv=None) -> int:
             print(f"kernel {r['name']}: {r['note']} [{smi}]")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     phase_of = {"presence_matrix": "store", "merge_perm": "store",
+                "merge_pairs": "store",
                 "gather_segsum": "analytics", "gather_segmin": "analytics",
                 "gather_segsum_runs": "analytics",
                 "batched_searchsorted": "fig16",

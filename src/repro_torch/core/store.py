@@ -33,7 +33,7 @@ import torch
 from . import csr, filters, index as mlindex, memgraph as mg_mod
 from .. import obs
 from ..kernels import ops as kops
-from ..kernels.merge import MERGE_STATS as _MERGE_STATS
+from ..kernels.merge import MERGE_STATS as _MERGE_STATS, to_device
 from .types import (BYTES_PER_EDGE, BYTES_PER_PROP, INVALID_VID, EdgeBatch,
                     IOCounters, MemGraphState, RunFile, StoreConfig, Version,
                     resolve_device, scalar)
@@ -122,19 +122,49 @@ def _fit_spine_cols(cols, total: int):
     return tuple(cols)
 
 
-def _run_backbone_stream(run: csr.CSRRunArrays, rid: int):
-    """One CSR run as a backbone stream: (src, dst, ts, rid, marker, prop),
-    sorted by construction — a run is natively (src, dst, ts)-ordered and
-    pad slots carry src == INVALID_VID, so no per-stream sort happens."""
-    src = csr.expand_src(run)
-    return (src, run.dst, run.ts,
-            torch.full(src.shape, rid, dtype=_I32, device=src.device),
-            run.marker, run.prop)
+def _spine_run_streams(runs, rid_base: int = 0, lead=None):
+    """Every run as a backbone stream (src, dst, ts, rid, marker, prop),
+    the streams laid end to end at full capacity, pads included, one
+    buffer a column; ``lead``, an already merged stream, goes first.
+    Returns (columns, capacities) for ``merge_laid_out``.
 
-
-def _spine_run_streams(runs, rid_base: int = 0):
-    return [_run_backbone_stream(rf.ensure_loaded(), rid_base + i)
-            for i, (rf, _col) in enumerate(runs)]
+    Each run is (src, dst, ts)-ordered by construction and its pad slots
+    carry src == INVALID_VID, so no stream is sorted.  ``src`` is
+    ``csr.expand_src`` of every run at once: one ``searchsorted`` of the
+    global slot index over every run's ``voff[1:]`` shifted to the run's
+    first slot (the runs' ranges do not overlap, so each slot finds its
+    own run's vertex), and ``rid`` one ``repeat_interleave`` with its
+    output size given, so the host never waits on the card."""
+    arrays = [rf.ensure_loaded() for rf, _col in runs]
+    dev = arrays[0].dst.device
+    ecap = np.array([a.ecap for a in arrays], np.int64)
+    vcap = np.array([a.vcap for a in arrays], np.int64)
+    lead_n = 0 if lead is None else int(lead[0].shape[0])
+    eoff = lead_n + np.cumsum(ecap) - ecap
+    voff0 = np.cumsum(vcap) - vcap
+    n_e, n_v = int(ecap.sum()), int(vcap.sum())
+    tab = to_device(np.concatenate([ecap, vcap, eoff, voff0]), dev)
+    ecap_t, vcap_t, eoff_t, voff0_t = tab.split(len(arrays))
+    run = torch.repeat_interleave(
+        torch.arange(len(arrays), device=dev), ecap_t, output_size=n_e)
+    slot = torch.arange(lead_n, lead_n + n_e, device=dev)
+    ends = torch.cat([a.voff[1:] for a in arrays]).long() + \
+        torch.repeat_interleave(eoff_t, vcap_t, output_size=n_v)
+    j = torch.minimum(torch.searchsorted(ends, slot, right=True),
+                      (voff0_t + vcap_t - 1)[run])
+    ne = torch.stack([a.ne for a in arrays]).long()
+    src = torch.where(slot - eoff_t[run] < ne[run],
+                      torch.cat([a.vkeys for a in arrays])[j],
+                      INVALID_VID).to(_I32)
+    cols = [src, torch.cat([a.dst for a in arrays]),
+            torch.cat([a.ts for a in arrays]), (run + rid_base).to(_I32),
+            torch.cat([a.marker for a in arrays]),
+            torch.cat([a.prop for a in arrays])]
+    caps = ecap.tolist()
+    if lead is not None:
+        cols = [torch.cat([x, c]) for x, c in zip(lead, cols)]
+        caps = [lead_n] + caps
+    return tuple(cols), caps
 
 
 def _empty_cols(device):
@@ -149,7 +179,7 @@ def _build_run_spine(runs, device) -> _RunSpine:
     if not runs:
         return _RunSpine(frozenset(), (), _empty_cols(device), 0)
     total = sum(rf.ne for rf, _col in runs)
-    cols = kops.tournament_merge(_spine_run_streams(runs))
+    cols = kops.merge_laid_out(*_spine_run_streams(runs))
     _MERGE_STATS.bump("spine_build")
     return _RunSpine(frozenset(rf.fid for rf, _col in runs), runs,
                      _fit_spine_cols(cols, total), total)
@@ -191,8 +221,11 @@ def _splice_run_spine(base: _RunSpine, runs) -> _RunSpine:
     dev = base.cols[0].device
     retained = _filter_remap_spine(
         *base.cols, torch.from_numpy(rid_map).to(dev), out_cap=out_cap)
-    streams = [retained] + _spine_run_streams(added, rid_base=len(kept))
-    cols = kops.tournament_merge(streams)
+    if added:
+        cols = kops.merge_laid_out(*_spine_run_streams(
+            added, rid_base=len(kept), lead=retained))
+    else:
+        cols = retained
     total = retained_total + sum(rf.ne for rf, _col in added)
     _MERGE_STATS.bump("spine_splice")
     return _RunSpine(frozenset(new_fids), tuple(kept + added),

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .merge import (lex_searchsorted, merge_perm, merge_perm_cuda,
+from .merge import (lex_searchsorted, merge_laid_out, merge_pairs,
+                    merge_pairs_cuda, merge_perm, merge_perm_cuda,
                     merge_streams, tournament_merge)
 from .presence import presence_matrix, presence_matrix_cuda
 from . import flash_attention as _flash
@@ -19,6 +20,7 @@ from . import segment_reduce as _segred
 #: Every kernel wrapper of the port, by kernel name.
 KERNELS = {"presence_matrix": presence_matrix_cuda,
            "merge_perm": merge_perm_cuda,
+           "merge_pairs": merge_pairs_cuda,
            "gather_segsum": _segred.gather_segsum_cuda,
            "gather_segmin": _segred.gather_segmin_cuda,
            "gather_segsum_runs": _segred.gather_segsum_runs_cuda,
@@ -87,6 +89,6 @@ def reset_launches() -> None:
 __all__ = ["gather_segsum", "gather_segsum_runs", "gather_segmin",
            "presence_matrix",
            "batched_searchsorted", "attention",
-           "merge_perm", "merge_streams",
+           "merge_perm", "merge_streams", "merge_pairs", "merge_laid_out",
            "tournament_merge", "lex_searchsorted", "launch_counts",
            "reset_launches", "KERNELS"]

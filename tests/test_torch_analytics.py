@@ -173,7 +173,7 @@ def test_collect_sorted_branch_counts(k, branch):
               for a, b in zip(after, before))
     assert dj[branch] == 1 and dp["host_lexsort"] == dj["host_lexsort"]
     if branch == "kernel_merge":
-        # The port's merge_streams also counts each of its k - 1 pairwise
+        # The port's tournament also counts each of its k - 1 pairwise
         # merges under this key.
         assert dp["kernel_merge"] == 1 + (k - 1)
     else:

@@ -18,8 +18,11 @@ also held elementwise to 2^-7 |want| + 1e-4 (``chip_smoke.py``'s bf16
 limit: twice bfloat16's rounding of the output plus a floor for float32
 summation over the keys).  The multi-run segment sum must equal its plain
 version where every partial sum is an exact float32 integer, and match
-within rtol 1e-5 / atol 1e-4 on real-valued x.  Every test skips where
-there is no card.
+within rtol 1e-5 / atol 1e-4 on real-valued x.  The merge-path
+permutation and the batched tournament round (keys and payload moved,
+never computed) must equal their plain versions exactly, and a store's
+spine built on the card must equal the CPU store's.  Every test skips
+where there is no card.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
 from repro_torch.core.types import INVALID_VID  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import lookup  # noqa: E402
+from repro_torch.kernels import merge  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
@@ -102,6 +106,7 @@ def test_cuda_segment_kernels_match_plain_versions():
         assert torch.equal(got + 0.0, want + 0.0), kind
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
+                                   "merge_pairs": 0,
                                    "gather_segsum": n_calls // 2 + 1,
                                    "gather_segmin": n_calls // 2 + 1,
                                    "gather_segsum_runs": 0,
@@ -412,3 +417,160 @@ def test_cuda_flash_attention_tensor_cores_need_aligned_inputs():
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte"):
         flash.flash_attention_cuda(shifted, k, v)
+
+
+# --------------------------------------------------------------- merges
+def _sorted_triples(rng, n, cap, kmax):
+    """n (k1, k2, k3)-sorted int32 triples in cap slots (all-MAX pads)."""
+    k = [rng.integers(0, kmax, n).astype(np.int32) for _ in range(3)]
+    o = np.lexsort((k[2], k[1], k[0]))
+    out = []
+    for x in k:
+        p = np.full(cap, INVALID_VID, np.int32)
+        p[:n] = x[o]
+        out.append(p)
+    return out
+
+
+MERGE_PERM_CASES = [
+    # (na, nb, acap, bcap, kmax)
+    (0, 0, 0, 0, 5), (0, 0, 64, 64, 5), (0, 3000, 10, 3000, 5),
+    (3000, 0, 3000, 7, 5),
+    (2047, 1, 2047, 1, 40), (2048, 2048, 2048, 2048, 40),   # tile edges
+    (2049, 2047, 2049, 2050, 40), (4095, 4097, 4096, 4100, 40),
+    (6000, 5000, 6000, 5000, 1),                            # all keys equal
+    (1 << 19, 1 << 19, 1 << 19, (1 << 19) + 9, 1 << 12),    # 2**20 records
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MERGE_PERM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_merge_perm_matches_plain_version(case):
+    """The merge-path permutation kernel against its plain version: empty
+    inputs, tiles of 2,048 outputs ending one short of, on and one past
+    the split, every key equal (ties to A), and 2**20 records."""
+    dev = _card()
+    na, nb, acap, bcap, kmax = case
+    rng = np.random.default_rng(na + 3 * nb)
+    a = [torch.from_numpy(k).to(dev)
+         for k in _sorted_triples(rng, na, acap, kmax)]
+    b = [torch.from_numpy(k).to(dev)
+         for k in _sorted_triples(rng, nb, bcap, kmax)]
+    before = ops.launch_counts()
+    got = merge.merge_perm_cuda(a, b, na, nb)
+    want = merge.merge_perm_plain(a, b, na, nb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (acap + bcap,)
+    assert torch.equal(got, want)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"merge_perm": 1}
+
+
+def _merge_streams(rng, k, dev):
+    """k ragged streams (some with no record, some of one slot), keys from
+    a small range so that equal keys meet across streams, and payload of
+    1, 4 and 8 bytes a record besides the spine's rid, marker and prop."""
+    streams = []
+    for i in range(k):
+        cap = int(rng.integers(1, 3000)) if i % 7 else int(
+            rng.integers(1, 4))
+        n = 0 if i % 5 == 4 else int(rng.integers(0, cap + 1))
+        keys = _sorted_triples(rng, n, cap, 3 if i % 2 else 50)
+        pay = [rng.integers(-1, 9, cap).astype(np.int32),
+               rng.random(cap) < 0.3, rng.random(cap).astype(np.float32),
+               rng.integers(0, 256, cap).astype(np.uint8),
+               rng.integers(-(1 << 62), 1 << 62, cap).astype(np.int64),
+               rng.random(cap)]
+        streams.append(tuple(torch.from_numpy(c).to(dev)
+                             for c in keys + pay))
+    return streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 1935])
+def test_cuda_merge_pairs_matches_plain_version(k):
+    """Every round of the tournament over k laid-out streams, keys and
+    payload, byte-equal to the plain version on the same buffers and
+    tables; one counted launch a round (its split pass and merge)."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    cols, caps = merge.lay_out(_merge_streams(rng, k, dev))
+    plan = merge.merge_plan(caps)
+    assert len(plan.rounds) == (k - 1).bit_length()
+    want = merge.merge_pairs_plain(cols, plan)
+    before = ops.launch_counts()
+    got = merge.merge_pairs_cuda(tuple(c.clone() for c in cols), plan)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert len(got) == len(want) == 9
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    launched = {n: after[n] - before[n] for n in after
+                if after[n] != before[n]}
+    assert launched == ({"merge_pairs": len(plan.rounds)} if k > 1 else {})
+
+
+@pytest.mark.cuda
+def test_cuda_tournament_merge_launches_once_a_round():
+    """tournament_merge on the card: ceil(log2 k) round launches of
+    merge_pairs and no merge_perm; equal to the CPU tournament."""
+    dev = _card()
+    rng = np.random.default_rng(33)
+    streams = _merge_streams(rng, 33, dev)
+    before = ops.launch_counts()
+    got = ops.tournament_merge(streams)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["merge_pairs"] - before["merge_pairs"] == 6
+    assert after["merge_perm"] == before["merge_perm"]
+    want = ops.tournament_merge([tuple(c.cpu() for c in s)
+                                 for s in streams])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_pairs_rejects_what_it_cannot_move():
+    dev = _card()
+    keys = [torch.zeros(8, dtype=torch.int32, device=dev) for _ in range(3)]
+    plan = merge.merge_plan([4, 4])
+    with pytest.raises(TypeError, match="2 bytes"):
+        merge.merge_pairs_cuda(
+            keys + [torch.zeros(8, dtype=torch.int16, device=dev)], plan)
+    with pytest.raises(TypeError, match="int32"):
+        merge.merge_pairs_cuda([k.long() for k in keys], plan)
+    with pytest.raises(ValueError, match="records"):
+        merge.merge_pairs_cuda(keys, merge.merge_plan([4, 5]))
+
+
+@pytest.mark.cuda
+def test_cuda_store_spine_matches_cpu_store():
+    """One stream through a store on the card and one on the CPU: the
+    runs laid end to end and the spine built from them are byte-equal,
+    pads included."""
+    from repro_torch.core import store as port_store
+    dev = _card()
+    cfg = dict(vmax=1 << 12, mem_edges=1 << 10, seg_size=4,
+               n_segments=1 << 10, hash_slots=1 << 12, ovf_cap=1 << 12,
+               batch_cap=256, l0_run_limit=2, seg_target_edges=256,
+               level_factor=2, n_levels=5)
+    rng = np.random.default_rng(15)
+    key = np.unique(rng.integers(0, 1 << 24, 12000))
+    src, dst = key >> 12, key & 4095
+    prop = rng.random(len(src)).astype(np.float32)
+    spines = []
+    for d in (dev, "cpu"):
+        g = LSMGraph(StoreConfig(**cfg), device=d)
+        for lo in range(0, len(src), 256):
+            g.insert_edges(src[lo:lo + 256], dst[lo:lo + 256],
+                           prop=prop[lo:lo + 256])
+        runs = [(rf, -1) for rf in g.levels[0]] + [
+            (rf, c) for c, lvl in enumerate(g.levels[1:]) for rf in lvl]
+        spines.append(port_store._build_run_spine(runs, g.device))
+    card, cpu = spines
+    assert len(card.runs) == len(cpu.runs) >= 20
+    assert card.total == cpu.total
+    for i, (a, b) in enumerate(zip(card.cols, cpu.cols)):
+        assert torch.equal(a.cpu(), b), i

@@ -306,6 +306,7 @@ def test_launch_counters_ignore_plain_calls():
     q = torch.zeros((1, 2, 128, 32))
     ops.attention(q, q, q, use_pallas=True)
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
+                                   "merge_pairs": 0,
                                    "gather_segsum": 0, "gather_segmin": 0,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
@@ -393,6 +394,7 @@ def test_cuda_kernels_match_plain_versions():
                        merge.merge_perm_plain(a, b, 5000, 3000))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"presence_matrix": 1, "merge_perm": 1,
+                                   "merge_pairs": 0,
                                    "gather_segsum": 0, "gather_segmin": 0,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
