@@ -38,7 +38,11 @@ line):
    segment sum is held against its plain version on every run view laid
    end to end (not counted), and must launch once a sweep in multi-level
    PageRank (11 launches).  ``gather_segsum``, ``gather_segmin`` and
-   ``gather_segsum_runs`` must launch in it.
+   ``gather_segsum_runs`` must launch in it; on the full stream at seed 0
+   12, 35 and 11 times, with BFS, SSSP and CC taking 6, 23 and 6
+   iterations.  Each single-run kernel is timed by CUDA events, by
+   ``torch.profiler`` (all its kernels, and the reduction alone) and on two
+   data probes (dst all 0, dst = seg_id).
 5. Paper Fig 16 on that store: ``neighbors_batch`` of phase 3's queries
    with the multi-level index off (the read spine probes every run), then
    the legacy concat-then-lexsort read (``LSMG_READ_TOURNAMENT_K=0``) with
@@ -122,12 +126,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, kernel: str = "", iters: int = 20) -> float:
+def device_ms(fn, kernel: str = "", iters: int = 20, by_kernel=None):
     """Mean device time a call of ``fn`` spends in the kernels whose name
     holds ``kernel`` (in all its kernels by default), by ``torch.profiler``
     over ``iters`` calls: the device's work alone, where CUDA events around
     back-to-back calls would time the host's dispatch of calls shorter
-    than their Python."""
+    than their Python.  ``by_kernel``, a dict, receives each counted
+    kernel's (launches a call, device ms a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -137,16 +142,24 @@ def device_ms(fn, kernel: str = "", iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    # The profiler can drop a kernel's record (seen on the H100: 19 of 20
+    # launches of one kernel reported), so each kernel counts as its mean
+    # time a launch times its launches a call, rounded.
     total, n = 0.0, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and \
-                kernel in e.key:
+                kernel in e.key and e.count:
             t = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if t is None else t
+            t = e.self_cuda_time_total if t is None else t
+            per_call = max(round(e.count / iters), 1)
+            total += t / e.count * per_call
             n += e.count
+            if by_kernel is not None:
+                by_kernel[e.key[:60]] = (e.count / iters,
+                                         t / e.count * per_call / 1e3)
     if n == 0:
         raise AssertionError(f"the profiler saw no kernel named {kernel!r}")
-    return total / 1e3 / iters
+    return total / 1e3
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = INT32_OPS_PER_S):
@@ -554,11 +567,48 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-4   # tests/test_kernels.py's segsum tolerance
 PR_REL_L1 = 1e-4
 SSSP_ATOL = 1e-4
 WSUM_RTOL = 1e-4
+# The analytics path's launches and iterations on the full scale-22 stream
+# at seed 0, as measured on an H100.  They follow from the graph alone: a
+# kernel that computes the same function must not move them.
+SEED0_ANALYTICS = dict(
+    launches={"gather_segsum": 12, "gather_segmin": 35,
+              "gather_segsum_runs": 11},
+    iterations={"bfs": 6, "sssp": 23, "cc": 6})
 
 
 def _pos_zero(t):
     """-0.0 -> +0.0 (IEEE: -0.0 + 0.0 == +0.0), for byte comparisons."""
     return t + 0.0
+
+
+# The profiler's name of the reduction kernel of the single-run segment
+# kernels, without the fill kernel that runs before it.
+SEG_REDUCE_KERNEL = "seg_reduce_kernel"
+
+
+def segment_times(call, dst, seg, wt, x, n):
+    """Times of a segment-kernel call ``call(dst, seg, wt, x, n)``: CUDA
+    events around back-to-back calls (``ms``), device time of all its
+    kernels (``device_ms``) and of the reduction kernel alone
+    (``reduce_ms``), both by ``torch.profiler``; and the reduction alone on
+    two data probes that change data, not code: dst all zeros (every gather
+    hits one line: ``probe_zero_ms``) and dst = seg_id (near-sequential
+    gathers: ``probe_seq_ms``).  The probes split the gather's cost from
+    the streaming of dst, seg_id and wt and the writes of y."""
+    import torch
+
+    def at(d):
+        return lambda: call(d, seg, wt, x, n)
+
+    zero = torch.zeros_like(dst)
+    seq = seg.clamp(0, x.shape[0] - 1)
+    kernels = {}
+    return dict(ms=time_ms(at(dst)),
+                device_ms=device_ms(at(dst), by_kernel=kernels),
+                device_kernels=kernels,
+                reduce_ms=device_ms(at(dst), SEG_REDUCE_KERNEL),
+                probe_zero_ms=device_ms(at(zero), SEG_REDUCE_KERNEL),
+                probe_seq_ms=device_ms(at(seq), SEG_REDUCE_KERNEL))
 
 
 def check_segment_kernels(view, seed):
@@ -613,7 +663,7 @@ def check_segment_kernels(view, seed):
                       if name == "gather_segsum" else
                       "src/repro/kernels/segment_reduce.py:114"),
             max_abs_err=err, verdict=verdict,
-            ms=time_ms(lambda: kern(dst, seg, wt, x, n)),
+            **segment_times(kern, dst, seg, wt, x, n),
             plain_ms=time_ms(lambda: plain(dst, seg, wt, x, n), iters=3,
                              warmup=1),
             bound_ms=t_bound, bound_by=by, library_ms=library,
@@ -1283,6 +1333,14 @@ def main(argv=None) -> int:
     need_launches(launches["analytics"], ("gather_segsum", "gather_segmin",
                                           "gather_segsum_runs"),
                   "the analytics path")
+    if args.edges == EDGEFACTOR << SCALE and args.seed == 0:
+        got = dict(launches={k: launches["analytics"][k]
+                             for k in SEED0_ANALYTICS["launches"]},
+                   iterations={k: an["steps"][k]["iterations"]
+                               for k in SEED0_ANALYTICS["iterations"]})
+        if got != SEED0_ANALYTICS:
+            raise AssertionError(f"analytics launches and iterations {got}, "
+                                 f"not {SEED0_ANALYTICS}")
     for r in an["rows"]:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
@@ -1292,6 +1350,12 @@ def main(argv=None) -> int:
               f"err {r['max_abs_err']}); {r['ms']:.3f} ms{dev_ms}, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib} [{smi}]")
+        if "reduce_ms" in r:
+            print(f"kernel {r['name']}: device ms of the reduction kernel "
+                  f"alone {r['reduce_ms']:.4f}; on the probes dst = 0 "
+                  f"{r['probe_zero_ms']:.4f}, dst = seg_id "
+                  f"{r['probe_seq_ms']:.4f}; all kernels of a call "
+                  f"(launches, ms) {r['device_kernels']} [{smi}]")
     rows += an.pop("rows")
     print(f"main path (analytics): {json.dumps(an)}; phase "
           f"{time.perf_counter() - t0:.1f} s")

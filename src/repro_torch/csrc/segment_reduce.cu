@@ -18,18 +18,37 @@
 // Design.  The TPU kernel turns each 512-edge tile into a one-hot matrix for
 // the MXU and combines tiles with an XLA scatter; neither fits Hopper.  Here
 // each warp owns a contiguous range of kSubTiles * 32 edges and walks it in
-// 32-edge steps: every lane reads one edge (coalesced), gathers x[dst], and a
-// segmented suffix reduction over __shfl_down_sync (combining a neighbour's
-// value only when it belongs to the same segment) leaves each segment's
-// partial in the segment's first lane.  The segment still open at the end of
-// a step is carried in registers into the next step.  A segment that lies
-// wholly inside the warp's range has no other writer and is stored directly;
-// only a segment that touches the range's first or last edge (a hub spans
-// many ranges) goes through an atomic.  Float atomicAdd makes the order of a
-// hub's partial sums vary from run to run; min is order-free, so segmin is
-// exact.  CUDA has no float atomicMin: the sign-aware integer trick below
-// (int atomicMin for a value >= 0, unsigned atomicMax for a negative one)
-// orders IEEE floats correctly.  A first kernel fills y with the identity.
+// 32-edge steps: every lane reads one edge (coalesced) and gathers x[dst].
+// One ballot marks the lanes where a segment starts, and a segmented suffix
+// reduction over __shfl_down_sync, each lane combining only up to the last
+// lane of its own segment, leaves each segment's partial in the segment's
+// first lane.  The segment still open at the end of a step is carried in
+// registers into the next step.  A segment that lies wholly inside the
+// warp's range has no other writer and is stored directly; only a segment
+// that touches the range's first or last edge (a hub spans many ranges)
+// goes through an atomic.  Float atomicAdd makes the order of a hub's
+// partial sums vary from run to run; min is order-free, so segmin is exact.
+// CUDA has no float atomicMin: the sign-aware integer trick below (int
+// atomicMin for a value >= 0, unsigned atomicMax for a negative one) orders
+// IEEE floats correctly.  A first kernel fills y with the identity.
+//
+// What holds it back on the H100 is the gather of x through L1, not the
+// shuffles: at scale 22 x is 16 MB and stays in L2, but a gather that misses
+// L1 moves a 32-byte sector for 4 useful bytes.  Measured with
+// tools/segment_bench.py and tools/segment_variants.py, the kernel takes
+// about 0.35 ms with every dst = 0 and about 0.49 ms with the real dst, and
+// anything that takes L1 from x costs more than it saves: 8.5 KB of unused
+// shared memory a CTA made the first design 0.05 to 0.08 ms slower, and an
+// L1::evict_last hint on the gathers 0.04 to 0.06 ms.  Designs tried on the
+// card that staged edges in shared memory, read several edges a lane with
+// 16-byte loads and kept several gathers a lane in flight, or made the sum
+// deterministic (cross-warp partials combined in the CTA and across tiles
+// by a second pass, y written once without the fill) all ran slower than
+// the first design.  So the layout stays, and three changes remain: the
+// ballot replaces the per-round comparison of segment ids (five shuffles a
+// step fewer; segmin's dst = 0 time falls from 0.43 to 0.36 ms), dst,
+// seg_id and wt are read evict-first (__ldcs), which leaves more of L1 to
+// x (3 % faster), and CTAs have 512 threads (1 %).
 //
 // Multi-run segment sum (gather_segsum_runs_launch): the merge-free
 // multi-level PageRank of src/repro/analytics/multilevel.py::multilevel_spmv
@@ -60,6 +79,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// CTA of the single-run kernel: 512 threads ran 1 % faster than 256
+// (tools/segment_variants.py); occupancy is 64 warps an SM for both.
+constexpr int kSingleThreads = 512;
 constexpr int kSubTiles = 8;
 constexpr int kWarpEdges = 32 * kSubTiles;
 constexpr unsigned kFull = 0xffffffffu;
@@ -124,7 +146,7 @@ __device__ __forceinline__ void emit(float* y, int seg, float v, bool shared,
 }
 
 template <class Op>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSingleThreads)
 seg_reduce_kernel(const int32_t* __restrict__ dst,
                   const int32_t* __restrict__ seg_id,
                   const float* __restrict__ wt, const float* __restrict__ x,
@@ -149,22 +171,26 @@ seg_reduce_kernel(const int32_t* __restrict__ dst,
     int s = INT_MAX;
     float v = Op::identity();
     if (i < n_edges) {
-      s = max(__ldg(seg_id + i), 0);
+      s = max(__ldcs(seg_id + i), 0);
       if (s < n_out) {
-        const int d = min(max(__ldg(dst + i), 0), n_x - 1);
-        v = Op::edge(__ldg(wt + i), __ldg(x + d));
+        const int d = min(max(__ldcs(dst + i), 0), n_x - 1);
+        v = Op::edge(__ldcs(wt + i), __ldg(x + d));
       }
     }
-    // Segmented suffix reduction: afterwards each lane holds the partial of
-    // its segment over itself and the lanes after it in this step.
+    // Segment heads by one ballot; then a segmented suffix reduction over
+    // the lanes up to the last of this lane's segment: afterwards each lane
+    // holds the partial of its segment over itself and the lanes after it
+    // in this step.
+    const int s_prev = __shfl_up_sync(kFull, s, 1);
+    const bool head = lane == 0 || s_prev != s;
+    const unsigned heads = __ballot_sync(kFull, head);
+    const unsigned after = lane < 31 ? heads >> (lane + 1) : 0u;
+    const int seg_end = after ? lane + __ffs(after) - 1 : 31;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float vo = __shfl_down_sync(kFull, v, off);
-      const int so = __shfl_down_sync(kFull, s, off);
-      if (lane + off < 32 && so == s) v = Op::combine(v, vo);
+      if (lane + off <= seg_end) v = Op::combine(v, vo);
     }
-    const int s_prev = __shfl_up_sync(kFull, s, 1);
-    const bool head = lane == 0 || s_prev != s;
     const int s_first = __shfl_sync(kFull, s, 0);
     const int s_last = __shfl_sync(kFull, s, 31);
     // Lane 0's segment: a continuation of the open one, or a new segment
@@ -184,7 +210,6 @@ seg_reduce_kernel(const int32_t* __restrict__ dst,
       emit<Op>(y, s, v, lane == 0 && lane0_shared, n_out);
     }
     // The segment holding lane 31 stays open.
-    const unsigned heads = __ballot_sync(kFull, head);
     const int last_head = 31 - __clz(heads);
     open_val = __shfl_sync(kFull, v, last_head);
     open_seg = s_last;
@@ -265,10 +290,11 @@ seg_sum_runs_kernel(const int32_t* __restrict__ dst,
 using SegKernel = void (*)(const int32_t*, const int32_t*, const float*,
                           const float*, float*, long long, int, int);
 
-// Fill y with the identity, then run the reduction kernel over the edges.
-int launch(SegKernel kernel, const void* dst, const void* seg_id,
-           const void* wt, const void* x, void* y, long long n_edges, int n_x,
-           int n_out, float fill, void* stream) {
+// Fill y with the identity, then run the reduction kernel over the edges in
+// CTAs of the given number of threads.
+int launch(SegKernel kernel, int threads, const void* dst,
+           const void* seg_id, const void* wt, const void* x, void* y,
+           long long n_edges, int n_x, int n_out, float fill, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(y);
   if (n_out > 0) {
@@ -280,8 +306,8 @@ int launch(SegKernel kernel, const void* dst, const void* seg_id,
   }
   if (n_edges > 0 && n_out > 0) {
     const long long warps = (n_edges + kWarpEdges - 1) / kWarpEdges;
-    const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    const long long blocks = (warps * 32 + threads - 1) / threads;
+    kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
         static_cast<const int32_t*>(dst), static_cast<const int32_t*>(seg_id),
         static_cast<const float*>(wt), static_cast<const float*>(x), out,
         n_edges, n_x, n_out);
@@ -295,16 +321,16 @@ extern "C" int gather_segsum_launch(const void* dst, const void* seg_id,
                                     const void* wt, const void* x, void* y,
                                     long long n_edges, int n_x, int n_out,
                                     void* stream) {
-  return launch(seg_reduce_kernel<SumOp>, dst, seg_id, wt, x, y, n_edges, n_x,
-                n_out, 0.0f, stream);
+  return launch(seg_reduce_kernel<SumOp>, kSingleThreads, dst, seg_id, wt, x,
+                y, n_edges, n_x, n_out, 0.0f, stream);
 }
 
 extern "C" int gather_segmin_launch(const void* dst, const void* seg_id,
                                     const void* wt, const void* x, void* y,
                                     long long n_edges, int n_x, int n_out,
                                     void* stream) {
-  return launch(seg_reduce_kernel<MinOp>, dst, seg_id, wt, x, y, n_edges, n_x,
-                n_out, kInf, stream);
+  return launch(seg_reduce_kernel<MinOp>, kSingleThreads, dst, seg_id, wt, x,
+                y, n_edges, n_x, n_out, kInf, stream);
 }
 
 // Every run's records laid end to end: seg_id sorted within each run.
@@ -312,6 +338,6 @@ extern "C" int gather_segsum_runs_launch(const void* dst, const void* seg_id,
                                          const void* wt, const void* x,
                                          void* y, long long n_edges, int n_x,
                                          int n_out, void* stream) {
-  return launch(seg_sum_runs_kernel, dst, seg_id, wt, x, y, n_edges, n_x,
-                n_out, 0.0f, stream);
+  return launch(seg_sum_runs_kernel, kThreads, dst, seg_id, wt, x, y, n_edges,
+                n_x, n_out, 0.0f, stream);
 }

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[str, Dict[str, object]] = {}
 #: ptxas register/shared-memory report of each build made by this process.
 BUILD_LOG: Dict[str, str] = {}
 
@@ -95,6 +96,24 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
                 _LIBS[name] = lib
     return lib
+
+
+def bind(name: str, prototypes: Dict[str, list]) -> Dict[str, object]:
+    """The C entry points of ``csrc/<name>.cu`` by name, each with its
+    ctypes argument types from ``prototypes`` (every entry point returns an
+    int error code) set once, when the library is first bound, and not on
+    every call."""
+    fns = _BOUND.get(name)
+    if fns is None:
+        lib = load(name)
+        fns = {}
+        for entry, argtypes in prototypes.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        _BOUND[name] = fns
+    return fns
 
 
 def check(rc: int, name: str) -> None:

@@ -84,6 +84,12 @@ def kernel_path(dtype: torch.dtype, d: int) -> str:
     return "cuda_cores"
 
 
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_PROTOTYPES = {"flash_attention_launch": _ARGTYPES,
+               "flash_attention_mma_launch": _ARGTYPES}
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale=None) -> torch.Tensor:
     """Launch a kernel of ``csrc/flash_attention.cu`` on the current stream:
@@ -111,12 +117,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the tensor-core kernel copies 16 bytes at a time: "
                          "q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    fn = (lib.flash_attention_mma_launch if path == "tensor_cores"
-          else lib.flash_attention_launch)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("flash_attention", _PROTOTYPES)[
+        "flash_attention_mma_launch" if path == "tensor_cores"
+        else "flash_attention_launch"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -46,6 +46,10 @@ def batched_searchsorted_ref(keys: torch.Tensor, queries: torch.Tensor,
     return torch.searchsorted(k, queries.to(torch.int32)).to(torch.int32)
 
 
+_PROTOTYPES = {"batched_searchsorted_launch": [ctypes.c_void_p] * 4 + [
+    ctypes.c_int] * 2 + [ctypes.c_void_p]}
+
+
 def batched_searchsorted_cuda(keys: torch.Tensor, queries: torch.Tensor,
                               n_keys) -> torch.Tensor:
     """Launch ``csrc/lookup.cu`` on the current stream: int32[nq]."""
@@ -58,10 +62,7 @@ def batched_searchsorted_cuda(keys: torch.Tensor, queries: torch.Tensor,
     if keys.shape[0] >= 1 << 31 or queries.shape[0] >= 1 << 31:
         raise ValueError("keys and queries must have fewer than 2**31 items")
     out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
-    fn = _build.load("lookup").batched_searchsorted_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("lookup", _PROTOTYPES)["batched_searchsorted_launch"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(keys.data_ptr(), queries.data_ptr(), n.data_ptr(),

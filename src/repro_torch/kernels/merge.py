@@ -123,22 +123,11 @@ _PROTOTYPES = {
     "merge_pairs_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
         ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
 }
-_FNS: Dict[str, object] = {}
 
 
 def _fn(name: str):
-    """A C entry point of ``csrc/merge_perm.cu``, its prototype set once,
-    when the library is first loaded."""
-    fn = _FNS.get(name)
-    if fn is None:
-        lib = _build.load("merge_perm")
-        for entry, argtypes in _PROTOTYPES.items():
-            f = getattr(lib, entry)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-            _FNS[entry] = f
-        fn = _FNS[name]
-    return fn
+    """A C entry point of ``csrc/merge_perm.cu``, its prototype set once."""
+    return _build.bind("merge_perm", _PROTOTYPES)[name]
 
 
 def _check_keys(keys, name: str, device: torch.device) -> int:

@@ -63,6 +63,10 @@ def presence_matrix_ref(words: torch.Tensor, offs: torch.Tensor,
     return hit
 
 
+_PROTOTYPES = {"presence_matrix_launch": [ctypes.c_void_p] * 5 + [
+    ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]}
+
+
 def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
                          masks: torch.Tensor,
                          queries: torch.Tensor) -> torch.Tensor:
@@ -78,11 +82,7 @@ def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
         raise ValueError("offs and masks must have one entry per run")
     r, b = offs.shape[0], queries.shape[0]
     out = torch.empty((r, b), dtype=torch.bool, device=dev)
-    lib = _build.load("presence")
-    fn = lib.presence_matrix_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("presence", _PROTOTYPES)["presence_matrix_launch"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(words.data_ptr(), offs.data_ptr(), masks.data_ptr(),

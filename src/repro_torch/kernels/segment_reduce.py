@@ -68,6 +68,12 @@ def gather_segsum_runs_ref(dst: torch.Tensor, seg_id: torch.Tensor,
     return gather_segsum_ref(dst, seg_id, wt, x, n_out)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+_PROTOTYPES = {f"{name}_launch": _ARGTYPES for name in (
+    "gather_segsum", "gather_segmin", "gather_segsum_runs")}
+
+
 def _launch(entry: str, dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     dev = x.device
     if dev.type != "cuda":
@@ -84,10 +90,7 @@ def _launch(entry: str, dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     if not 0 <= n_out < 1 << 31 or x.shape[0] >= 1 << 31:
         raise ValueError("n_out and len(x) must fit in int32")
     y = torch.empty((n_out,), dtype=torch.float32, device=dev)
-    fn = getattr(_build.load("segment_reduce"), f"{entry}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("segment_reduce", _PROTOTYPES)[f"{entry}_launch"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(dst.data_ptr(), seg_id.data_ptr(), wt.data_ptr(),

@@ -114,6 +114,97 @@ def test_cuda_segment_kernels_match_plain_versions():
                                    "flash_attention": 0}
 
 
+# Segment lengths laid against the single-run kernels' geometry (a warp
+# walks 256 edges, 32 a step): ending exactly at, one before and one after
+# a step's and a warp range's end; below one step; ragged (the last range
+# not a multiple of 32 edges, or a multiple of 32 but not of 64).
+SEG_BOUNDARY_CASES = {
+    "step": [32] * 200, "step_pm1": [31, 33] * 100,
+    "warp": [256] * 40, "warp_pm1": [255, 257] * 20,
+    "tiles": [2048] * 3, "below_step": [3, 1, 4, 1, 5, 9, 2],
+    "ragged": [1, 2047, 2048 * 3, 5, 13, 2050],
+    "end_at_32": [2048, 29],
+}
+
+
+def _boundary_case(lengths, offset, kind, dev, seed):
+    """Segments of the given lengths (an empty segment between some),
+    behind 2,048 edges of seg_id -1 (segment 0, so the lengths fall on the
+    kernels' step and range edges) and ahead of three edges with seg_id >=
+    n_out, as contiguous views starting ``offset`` elements into
+    their buffers; dst from -3 to past the end of x.  segsum: integer
+    inputs (every partial sum exact); segmin: negative values and -0.0."""
+    rng = np.random.default_rng(seed)
+    ids = np.cumsum(rng.integers(1, 3, len(lengths)))
+    seg = np.concatenate([[-1] * 2048, np.repeat(ids, lengths),
+                          [ids[-1] + 2] * 3]).astype(np.int32)
+    n_out = int(ids[-1]) + 1
+    e, v = seg.shape[0], n_out + 5
+    dst = rng.integers(-3, v + 3, e).astype(np.int32)
+    if kind == "segsum":
+        wt = rng.choice([1.0, -1.0, 0.0, 2.0], e).astype(np.float32)
+        x = rng.integers(-2, 3, v).astype(np.float32)
+    else:
+        wt = rng.uniform(-2, 2, e).astype(np.float32)
+        wt[rng.integers(0, e, 5)] = -0.0
+        x = rng.normal(size=v).astype(np.float32)
+        x[rng.integers(0, v, 3)] = -0.0
+
+    def view(a):
+        buf = torch.zeros(a.shape[0] + offset, dtype=torch.from_numpy(
+            a).dtype, device=dev)
+        buf[offset:] = torch.from_numpy(a).to(dev)
+        return buf[offset:]
+
+    return [view(dst), view(seg), view(wt),
+            torch.from_numpy(x).to(dev)], n_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", sorted(SEG_BOUNDARY_CASES))
+def test_cuda_segment_kernels_at_boundaries(case, offset):
+    """Both single-run kernels against their plain versions where segments
+    end at step and warp-range edges, on views that start 0 to 12 bytes
+    past a 16-byte boundary: byte-equal (segsum on exact integer inputs;
+    segmin after mapping -0.0 to +0.0)."""
+    dev = _card()
+    for kind in ("segsum", "segmin"):
+        args, n_out = _boundary_case(SEG_BOUNDARY_CASES[case], offset, kind,
+                                     dev, len(case) + offset)
+        assert args[0].data_ptr() % 16 == 4 * offset
+        got = getattr(segred, f"gather_{kind}_cuda")(*args, n_out)
+        want = getattr(segred, f"gather_{kind}_ref")(*args, n_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got + 0.0, want + 0.0), (kind, case, offset)
+
+
+@pytest.mark.cuda
+def test_cuda_segment_kernels_repeat_byte_equal():
+    """20 runs of each single-run kernel give the same bytes every time
+    where the result cannot depend on the order of the kernel's atomics:
+    segmin always (a min is exact in any order), segsum on the hub case (a
+    segment of 1,200,000 edges across many warp ranges), whose integer
+    partial sums are exact.  segsum on real values adds a hub's partials by
+    atomicAdd in an order that changes: it stays within SEG_TOL."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    hub = _hub_case(rng, 3_000_000, 50_000, dev)
+    real = [torch.from_numpy(a).to(dev) for a in _seg_case(
+        5, 500_000, 20_000, n_out=20_000)[:4]]
+    for args, n_out, exact in ((hub, 50_000, True), (real, 20_000, False)):
+        for kind in ("segsum", "segmin"):
+            kern = getattr(segred, f"gather_{kind}_cuda")
+            first = kern(*args, n_out)
+            for _ in range(20):
+                again = kern(*args, n_out)
+                if exact or kind == "segmin":
+                    assert torch.equal(again.view(torch.int32),
+                                       first.view(torch.int32)), kind
+                else:
+                    torch.testing.assert_close(again, first, **SEG_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_analytics_match_cpu_store():
     """One stream through a store on the card and one on the CPU: the

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's kernel timing scripts in ``tools/``
+imports ``jax`` or anything of the JAX package ``repro``
 (checked on the source, so it holds whatever is installed)."""
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "segment_bench.py",
+    ROOT / "tools" / "segment_variants.py"]
 
 
 def _imported_roots(path: Path):
