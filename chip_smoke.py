@@ -13,9 +13,10 @@ line):
    the main path's shapes: the presence filter test on 2048 runs of real
    filters and 16384 queries, and the merge-path permutation of 2**24 and
    2**22 sorted key triples with duplicate keys.  Both must be byte-equal;
-   the kernel's time (CUDA events, and device time by ``torch.profiler``
-   for the merge), the plain version's time and the least time the card
-   could take (its bound) are printed.
+   the kernel's time (CUDA events, and device time by ``torch.profiler``),
+   the plain version's time and the least time the card could take (its
+   bound) are printed, and for presence the device time with every row
+   cut to FILTER_MIN_BITS.
 3. The store's write and read path at a realistic scale: Graph500 R-MAT
    scale 22, edgefactor 16 (A/B/C = 0.57/0.19/0.19), each edge carrying a
    Graph500 Kernel 3 SSSP weight (uniform in [0, 1)), streamed through one
@@ -51,6 +52,13 @@ line):
    on every run, byte-equal to its plain version, naming the slice the
    multi-level index names on every L1+ run and never finding a vertex its
    filter rules out on L0.  ``batched_searchsorted`` must launch once a run.
+   Then the same probe over every run at once (``csr.runs_lookup_batch``),
+   byte-equal to the per-run pass and to its plain version, with exactly
+   one launch of ``batched_searchsorted_runs``; both walls are printed
+   beside the index's lookup, with the one-launch pass's peak device
+   memory.  Both search kernels are then timed on the phase's queries: the
+   single-run one on the largest run (504,073 keys at seed 0), the
+   multi-run one on every run.
 6. Attention at the width of Qwen2-7B (28 query heads, 4 kv heads, head
    dim 128) at 4,096 tokens in bfloat16, causal and not, and at
    bench_kernels.py's float32 shape, through ``ops.attention(use_pallas=
@@ -137,16 +145,24 @@ def device_ms(fn, kernel: str = "", iters: int = 20, by_kernel=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # The profiler can drop a kernel's record (seen on the H100: 19 of 20
-    # launches of one kernel reported), so each kernel counts as its mean
-    # time a launch times its launches a call, rounded.
+    # The profiler can drop a kernel's records (seen on the H100: 19 of 20
+    # launches of one kernel reported; once, all 50 launches of a 6 µs
+    # kernel in one profile, where earlier profiles of the process had seen
+    # it), so a profile that sees no such kernel is taken again, up to
+    # three in all, and each kernel counts as its mean time a launch times
+    # its launches a call, rounded.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA and
+               kernel in e.key and e.count for e in events):
+            break
     total, n = 0.0, 0
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 kernel in e.key and e.count:
             t = getattr(e, "self_device_time_total", None)
@@ -171,12 +187,13 @@ def bound(nbytes: float, nops: float, ops_per_s: float = INT32_OPS_PER_S):
 
 
 # ------------------------------------------------------------------ phase 2
-def check_presence(dev, rng):
+def presence_inputs(dev, rng, b: int = 16384):
+    """Ragged filters (words, offs, masks) of two L0-sized runs and 2046
+    segment-sized runs, as the main path has, and ``b`` int32 queries, half
+    of them keys of the first eight runs."""
     import torch
     from repro_torch.core import filters
     from repro_torch.core.store import _stack_presence
-    from repro_torch.kernels import presence
-    # Two L0-sized runs and 2046 segment-sized runs, as the main path has.
     sizes = [600_000] * 2 + [4_000] * 2046
     runs, keysets = [], []
     for n in sizes:
@@ -184,10 +201,17 @@ def check_presence(dev, rng):
         keysets.append(keys)
         runs.append((SimpleNamespace(presence=filters.from_vkeys(keys)), 0))
     words, offs, masks = _stack_presence(runs, dev)
-    b = 16384
     q = np.concatenate([rng.choice(np.concatenate(keysets[:8]), b // 2),
                         rng.integers(0, 1 << SCALE, b - b // 2)])
-    queries = torch.from_numpy(q.astype(np.int32)).to(dev)
+    return words, offs, masks, torch.from_numpy(q.astype(np.int32)).to(dev)
+
+
+def check_presence(dev, rng):
+    import torch
+    from repro_torch.core import filters
+    from repro_torch.kernels import presence
+    words, offs, masks, queries = presence_inputs(dev, rng)
+    b = queries.shape[0]
     got = presence.presence_matrix_cuda(words, offs, masks, queries)
     want = presence.presence_matrix_ref(words, offs, masks, queries)
     torch.cuda.synchronize()
@@ -199,13 +223,23 @@ def check_presence(dev, rng):
     # Two 10-op hashes per query, then k probes of ~6 ops per pair.
     nops = b * 20 + r * b * filters.FILTER_K * 6
     t_bound, by = bound(nbytes, nops)
+
+    def kern(m=masks):
+        return presence.presence_matrix_cuda(words, offs, m, queries)
+
+    # The probe: every row cut to FILTER_MIN_BITS (all probes of a row in
+    # its first 8 words), which leaves the hashing, the stores and the
+    # staging of 8 words a run.
+    min_masks = torch.full_like(masks, filters.FILTER_MIN_BITS - 1)
     return dict(
         name="presence_matrix", route="cuda",
         source="src/repro_torch/csrc/presence.cu",
         replaces="src/repro/kernels/presence.py:85",
         max_abs_err=err,
-        ms=time_ms(lambda: presence.presence_matrix_cuda(
-            words, offs, masks, queries)),
+        ms=time_ms(kern, iters=50),
+        device_ms=device_ms(kern, "presence", iters=50),
+        probe_min_bits_ms=device_ms(lambda: kern(min_masks), "presence",
+                                    iters=50),
         plain_ms=time_ms(lambda: presence.presence_matrix_ref(
             words, offs, masks, queries), iters=3, warmup=1),
         bound_ms=t_bound, bound_by=by, library_ms=None,
@@ -1040,18 +1074,47 @@ def fig16_path(dev, store, queries, oracle, log=print):
             f"per-run probe: {bad[0]} kernel/plain mismatches, {bad[1]} "
             f"found/index mismatches, {bad[2]} offset mismatches (L1+), "
             f"{l0_bad} found but filtered out (L0)")
+    # The same probe in one launch over every run laid end to end, held
+    # byte-equal to the per-run pass and to its plain version.
+    per_run = [torch.stack(col) for col in zip(*probed)]
+    del probed
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    t0 = time.perf_counter()
+    one = csr.runs_lookup_batch(arrays, u)
+    sync()
+    t_one = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    plain = csr.runs_lookup_batch(arrays, u, use_pallas=False)
+    for what, other in (("the per-run pass", per_run), ("plain", plain)):
+        for name, a, b in zip(("found", "start", "end"), one, other):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"one-launch probe: {name} differs "
+                                     f"from {what}")
+    del one, plain, per_run
     largest = arrays[max(range(len(runs)), key=lambda i: runs[i][0].nv)]
     res["probe"] = dict(runs=len(runs), l0_runs=n_l0,
                         found=int(n_found), probe_ms=t_probe * 1e3,
-                        index_lookup_ms=t_index * 1e3)
+                        one_launch_ms=t_one * 1e3,
+                        one_launch_peak_gib=peak / 2**30,
+                        index_lookup_ms=t_index * 1e3,
+                        nv_min_median_max=[int(x) for x in np.percentile(
+                            [rf.nv for rf, _c in runs], [0, 50, 100])],
+                        runs_over_4096_keys=sum(rf.nv > 4096
+                                                for rf, _c in runs))
     log(f"fig16 per-run probe: {len(runs)} runs ({n_l0} L0) x {len(queries)}"
         f" queries, {int(n_found)} (vertex, run) pairs found; byte-equal to "
         f"the plain version, found and offsets equal to the multi-level "
         f"index on every L1+ run, no found vertex filtered out on L0")
-    log(f"fig16 probe pass {t_probe * 1e3:.1f} ms (one launch a run) against"
-        f" mlindex.lookup_batch {t_index * 1e3:.3f} ms for the same queries "
+    log(f"fig16 one-launch probe (csr.runs_lookup_batch): byte-equal to the "
+        f"per-run pass and to its plain version; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"fig16 probe pass {t_probe * 1e3:.1f} ms (one launch a run), "
+        f"{t_one * 1e3:.2f} ms (one launch for every run), against "
+        f"mlindex.lookup_batch {t_index * 1e3:.3f} ms for the same queries "
         f"(host clock, each ending in a synchronise)")
-    return res, largest, u
+    return res, largest, arrays, u
 
 
 def check_lookup(run, u):
@@ -1081,24 +1144,79 @@ def check_lookup(run, u):
     def lib():
         return torch.searchsorted(head, u)
 
-    # The kernel runs for a few µs, less than its wrapper's Python, so the
-    # row's times are device times from the profiler: CUDA events around
-    # back-to-back calls would time the host's dispatch instead.
+    # The kernel runs for a few µs, less than its wrapper's Python: CUDA
+    # events around back-to-back calls time the host's dispatch, the
+    # profiler the device's work.  The row's times are by events, each
+    # with its device time beside it.
+    times = {k: (time_ms(f, iters=50), device_ms(f, "searchsorted", iters=50))
+             for k, f in (("kern", kern), ("plain", plain), ("lib", lib))}
     return dict(
         name="batched_searchsorted", route="cuda",
         source="src/repro_torch/csrc/lookup.cu",
         replaces="src/repro/kernels/lookup.py:48",
         max_abs_err=err, verdict="byte-equal to plain",
-        ms=device_ms(kern, "searchsorted_kernel", iters=50),
-        plain_ms=device_ms(plain),
-        bound_ms=t_bound, bound_by=by,
-        library_ms=device_ms(lib, "searchsorted_cuda_kernel", iters=50),
+        ms=times["kern"][0], device_ms=times["kern"][1],
+        plain_ms=times["plain"][0], bound_ms=t_bound, bound_by=by,
+        library_ms=times["lib"][0],
         shape=f"n_keys={n} (cap {keys.shape[0]}), nq={nq}",
-        note=f"times are device times a call (torch.profiler); a call by "
-             f"CUDA events, host dispatch included: kernel "
-             f"{time_ms(kern, iters=50):.4f} ms, plain "
-             f"{time_ms(plain, iters=20):.4f} ms, torch.searchsorted "
-             f"{time_ms(lib, iters=50):.4f} ms")
+        note="device ms a call (torch.profiler): kernel "
+             f"{times['kern'][1]:.4f}, plain {times['plain'][1]:.4f}, "
+             f"torch.searchsorted {times['lib'][1]:.4f}")
+
+
+def check_lookup_runs(arrays, u):
+    """batched_searchsorted_runs against its plain version on every run of
+    the probe pass laid end to end, as ``csr.runs_lookup_batch`` lays them,
+    and the phase's queries."""
+    import torch
+    from repro_torch.kernels import lookup
+    dev = u.device
+    vcap = np.array([a.vcap for a in arrays], np.int64)
+    keys = torch.cat([a.vkeys for a in arrays])
+    offs = torch.from_numpy(np.cumsum(vcap) - vcap).to(dev)
+    nv = torch.stack([a.nv for a in arrays]).int()
+    args = (keys, offs, nv, u)
+    got = lookup.batched_searchsorted_runs_cuda(*args)
+    want = lookup.batched_searchsorted_runs_ref(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"batched_searchsorted_runs differs from "
+                             f"plain: {err}")
+    del got, want
+    r, b, n_keys = len(arrays), u.shape[0], int(nv.long().sum())
+    # Every run's keys[:nv] and the queries read once, the [R, B] insertion
+    # points written once; ~4 ops a bisection step, ~12 steps a pair.
+    t_bound, by = bound(4 * n_keys + 4 * b + 12 * r + 4 * r * b,
+                        4 * r * b * 12)
+    # The library call: one torch.searchsorted over the plain version's
+    # int64 (run, key) keys, made outside the timed call.
+    slot = torch.arange(keys.shape[0], device=dev)
+    run = torch.searchsorted(offs, slot, right=True) - 1
+    k64 = torch.where(slot - offs[run] < nv.long()[run], keys.long(),
+                      (1 << 31) - 1) + (1 << 31) | (run << 32)
+    q64 = ((torch.arange(r, device=dev) << 32)[:, None]
+           | (u.long() + (1 << 31))).reshape(-1)
+    del slot, run
+
+    def kern():
+        return lookup.batched_searchsorted_runs_cuda(*args)
+
+    return dict(
+        name="batched_searchsorted_runs", route="cuda",
+        source="src/repro_torch/csrc/lookup.cu",
+        replaces="src/repro/kernels/lookup.py:48",
+        max_abs_err=err, verdict="byte-equal to plain",
+        ms=time_ms(kern, iters=20),
+        device_ms=device_ms(kern, "searchsorted", iters=20),
+        plain_ms=time_ms(
+            lambda: lookup.batched_searchsorted_runs_ref(*args), iters=3,
+            warmup=1),
+        bound_ms=t_bound, bound_by=by,
+        library_ms=time_ms(lambda: torch.searchsorted(k64, q64), iters=5,
+                           warmup=1),
+        shape=f"R={r} runs ({n_keys} keys in {keys.shape[0]} slots), "
+              f"B={b}")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1288,11 +1406,13 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     rows = [check_presence(dev, rng), check_merge_perm(dev, args.seed)]
     for r in rows:
-        dev_ms = (f" ({r['device_ms']:.3f} ms device)"
+        dev_ms = (f" ({r['device_ms']:.4f} ms device)"
                   if "device_ms" in r else "")
         print(f"kernel {r['name']} ({r['shape']}): byte-equal to plain; "
-              f"{r['ms']:.3f} ms{dev_ms}, plain {r['plain_ms']:.3f} ms, "
+              f"{r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    print(f"kernel presence_matrix: every row at FILTER_MIN_BITS "
+          f"{rows[0]['probe_min_bits_ms']:.4f} ms device [{smi}]")
 
     if args.edges != EDGEFACTOR << SCALE:
         print(f"reduced: edges {args.edges} of {EDGEFACTOR << SCALE}")
@@ -1362,17 +1482,24 @@ def main(argv=None) -> int:
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    f16, largest, u = fig16_path(dev, store, queries, oracle)
+    f16, largest, arrays, u = fig16_path(dev, store, queries, oracle)
     launches["fig16"] = ops.launch_counts()
     print(f"main path (fig16) launches: {launches['fig16']}")
-    need_launches(launches["fig16"], ("batched_searchsorted",),
+    need_launches(launches["fig16"], ("batched_searchsorted",
+                                      "batched_searchsorted_runs"),
                   "the Fig 16 path")
     if launches["fig16"]["batched_searchsorted"] != f16["probe"]["runs"]:
         raise AssertionError("batched_searchsorted did not launch once a run")
+    if launches["fig16"]["batched_searchsorted_runs"] != 1:
+        raise AssertionError("the one-launch probe launched "
+                             "batched_searchsorted_runs "
+                             f"{launches['fig16']['batched_searchsorted_runs']}"
+                             " times, not once")
     rows.append(check_lookup(largest, u))
+    rows.append(check_lookup_runs(arrays, u))
     print(f"main path (fig16): {json.dumps(f16)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
-    del store, u, largest
+    del store, u, largest, arrays
 
     qwen, bench = attention_inputs(dev, args.seed)
     ops.reset_launches()
@@ -1384,10 +1511,12 @@ def main(argv=None) -> int:
                   "the attention path")
     rows.append(check_attention(qwen, bench, outs))
     print(f"main path (attention): phase {time.perf_counter() - t0:.1f} s")
-    for r in rows[-2:]:
-        lib = f"{r['library_ms']:.3f} ms"
+    for r in rows[-3:]:
+        lib = f"{r['library_ms']:.4f} ms"
+        dev_ms = (f" ({r['device_ms']:.4f} ms device)"
+                  if "device_ms" in r else "")
         print(f"kernel {r['name']} ({r['shape']}): {r['verdict']} (max abs "
-              f"err {r['max_abs_err']}); {r['ms']:.3f} ms, plain "
+              f"err {r['max_abs_err']}); {r['ms']:.4f} ms{dev_ms}, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib} [{smi}]")
         if "note" in r:
@@ -1398,6 +1527,7 @@ def main(argv=None) -> int:
                 "gather_segsum": "analytics", "gather_segmin": "analytics",
                 "gather_segsum_runs": "analytics",
                 "batched_searchsorted": "fig16",
+                "batched_searchsorted_runs": "fig16",
                 "flash_attention": "attention"}
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[phase_of[r["name"]]][r["name"]]}

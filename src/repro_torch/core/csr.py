@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .types import INVALID_VID, CSRRunArrays, scalar
@@ -94,6 +95,34 @@ def run_lookup_batch(run: CSRRunArrays, vs: torch.Tensor, *,
     found = (run.vkeys[i_c] == vs) & (vs != INVALID_VID)
     start = torch.where(found, run.voff[i_c], 0).to(_I32)
     end = torch.where(found, run.voff[i_c + 1], 0).to(_I32)
+    return found, start, end
+
+
+def runs_lookup_batch(runs: Sequence[CSRRunArrays], vs: torch.Tensor, *,
+                      use_pallas: bool = True):
+    """``run_lookup_batch`` of ``vs`` in every run at once: (found, start,
+    end) as [R, B], row r equal to ``run_lookup_batch(runs[r], vs)``.  The
+    runs' ``vkeys`` and ``voff`` are laid end to end and searched by one
+    ``batched_searchsorted_runs`` (``use_pallas``: the kernel, dispatch by
+    device; else its plain version), with each run's ``nv`` read on the
+    device; the run table goes to the device in one copy."""
+    from ..kernels import ops as kops
+    dev = vs.device
+    vcap = np.array([a.vcap for a in runs], np.int64)
+    koff = np.cumsum(vcap) - vcap
+    tab = torch.from_numpy(np.stack([koff, koff + np.arange(len(runs)),
+                                     vcap])).to(dev)
+    koff_t, ooff_t, vcap_t = tab.unbind(0)
+    vkeys = torch.cat([a.vkeys for a in runs])
+    voff = torch.cat([a.voff for a in runs])
+    nv = torch.stack([a.nv for a in runs]).to(_I32)
+    i = kops.batched_searchsorted_runs(vkeys, koff_t, nv, vs,
+                                       use_pallas=use_pallas)
+    i_c = torch.minimum(i, (vcap_t - 1)[:, None])
+    found = (vkeys[koff_t[:, None] + i_c] == vs) & (vs != INVALID_VID)
+    at = ooff_t[:, None] + i_c
+    start = torch.where(found, voff[at], 0).to(_I32)
+    end = torch.where(found, voff[at + 1], 0).to(_I32)
     return found, start, end
 
 

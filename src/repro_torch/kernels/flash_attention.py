@@ -120,11 +120,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.bind("flash_attention", _PROTOTYPES)[
         "flash_attention_mma_launch" if path == "tensor_cores"
         else "flash_attention_launch"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], b, hq, hkv, sq, skv, d, _scale(d, scale),
-                int(bool(causal)), stream)
+    rc = _build.run_on(dev, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, sq, skv,
+                       d, _scale(d, scale), int(bool(causal)))
     _build.check(rc, f"flash_attention ({path})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.path_launches[path] += 1

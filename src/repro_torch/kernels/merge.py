@@ -159,12 +159,9 @@ def merge_perm_cuda(a_keys, b_keys, na: int, nb: int) -> torch.Tensor:
     split = torch.empty((max(1, -(-(na + nb) // TILE)),), dtype=torch.int64,
                         device=dev)
     fn = _fn("merge_perm_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(k.data_ptr() for k in a_keys),
-                *(k.data_ptr() for k in b_keys),
-                na, nb, acap, bcap, split.data_ptr(), perm.data_ptr(),
-                stream)
+    rc = _build.run_on(dev, fn, *(k.data_ptr() for k in a_keys),
+                       *(k.data_ptr() for k in b_keys), na, nb, acap, bcap,
+                       split.data_ptr(), perm.data_ptr())
     _build.check(rc, "merge_perm")
     merge_perm_cuda.launches += 1
     return perm
@@ -292,19 +289,18 @@ def merge_pairs_cuda(cols, plan: MergePlan):
                                                      for t in ts))
 
     pair_at = tile_at = 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for rnd, nt in zip(plan.rounds, n_tiles):
-            rc = fn(ptrs(cur[:3]), ptrs(nxt[:3]), ptrs(cur[3:]),
-                    ptrs(nxt[3:]), pay_size, n_pay,
-                    pairs.data_ptr() + pair_at * pairs.element_size() * 4,
-                    tiles.data_ptr() + tile_at * tiles.element_size(), nt,
-                    split.data_ptr(), stream)
-            _build.check(rc, "merge_pairs")
-            merge_pairs_cuda.launches += 1
-            pair_at += rnd.pairs.shape[0]
-            tile_at += nt
-            cur, nxt = nxt, cur
+    for rnd, nt in zip(plan.rounds, n_tiles):
+        rc = _build.run_on(
+            dev, fn, ptrs(cur[:3]), ptrs(nxt[:3]), ptrs(cur[3:]),
+            ptrs(nxt[3:]), pay_size, n_pay,
+            pairs.data_ptr() + pair_at * pairs.element_size() * 4,
+            tiles.data_ptr() + tile_at * tiles.element_size(), nt,
+            split.data_ptr())
+        _build.check(rc, "merge_pairs")
+        merge_pairs_cuda.launches += 1
+        pair_at += rnd.pairs.shape[0]
+        tile_at += nt
+        cur, nxt = nxt, cur
     return cur
 
 

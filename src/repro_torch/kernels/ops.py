@@ -25,6 +25,8 @@ KERNELS = {"presence_matrix": presence_matrix_cuda,
            "gather_segmin": _segred.gather_segmin_cuda,
            "gather_segsum_runs": _segred.gather_segsum_runs_cuda,
            "batched_searchsorted": _lookup.batched_searchsorted_cuda,
+           "batched_searchsorted_runs":
+               _lookup.batched_searchsorted_runs_cuda,
            "flash_attention": _flash.flash_attention_cuda}
 
 
@@ -65,6 +67,17 @@ def batched_searchsorted(keys, queries, n_keys, *, use_pallas: bool = True):
     return _lookup.batched_searchsorted(keys, queries, n_keys)
 
 
+def batched_searchsorted_runs(keys, offs, n_keys, queries, *,
+                              use_pallas: bool = True):
+    """The batched search into every run laid end to end, int32[R, B], in
+    one launch: row r is ``batched_searchsorted`` into run r.
+    ``use_pallas`` as for ``gather_segsum``."""
+    if not use_pallas:
+        return _lookup.batched_searchsorted_runs_ref(keys, offs, n_keys,
+                                                     queries)
+    return _lookup.batched_searchsorted_runs(keys, offs, n_keys, queries)
+
+
 def attention(q, k, v, *, causal: bool = True, scale=None,
               use_pallas: bool = False):
     """Blocked attention.  As in the reference, the plain version is the
@@ -88,7 +101,7 @@ def reset_launches() -> None:
 
 __all__ = ["gather_segsum", "gather_segsum_runs", "gather_segmin",
            "presence_matrix",
-           "batched_searchsorted", "attention",
+           "batched_searchsorted", "batched_searchsorted_runs", "attention",
            "merge_perm", "merge_streams", "merge_pairs", "merge_laid_out",
            "tournament_merge", "lex_searchsorted", "launch_counts",
            "reset_launches", "KERNELS"]

@@ -10,7 +10,9 @@ formula-identical by contract, so a key inserted at build time can never
 miss at query time.
 
 ``presence_matrix_cuda`` launches the hand-written kernel
-``csrc/presence.cu``; ``presence_matrix_ref`` is its plain PyTorch version,
+``csrc/presence.cu``, which stages a filter of at most ``stage_words()``
+words in shared memory and probes a larger one through L2;
+``presence_matrix_ref`` is its plain PyTorch version,
 which computes the uint32 arithmetic in int64 masked to 32 bits (torch has
 no ``>>`` on uint32 on the CPU).  ``presence_matrix`` picks by the device of
 the tensors it is given.
@@ -64,7 +66,14 @@ def presence_matrix_ref(words: torch.Tensor, offs: torch.Tensor,
 
 
 _PROTOTYPES = {"presence_matrix_launch": [ctypes.c_void_p] * 5 + [
-    ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]}
+    ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p],
+    "presence_stage_words": []}
+
+
+def stage_words() -> int:
+    """Words of the largest filter the kernel stages in shared memory, as
+    the built ``csrc/presence.cu`` states it."""
+    return _build.bind("presence", _PROTOTYPES)["presence_stage_words"]()
 
 
 def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
@@ -83,11 +92,9 @@ def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
     r, b = offs.shape[0], queries.shape[0]
     out = torch.empty((r, b), dtype=torch.bool, device=dev)
     fn = _build.bind("presence", _PROTOTYPES)["presence_matrix_launch"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(words.data_ptr(), offs.data_ptr(), masks.data_ptr(),
-                queries.data_ptr(), out.data_ptr(), r, b, FILTER_K,
-                FILTER_SALT, stream)
+    rc = _build.run_on(dev, fn, words.data_ptr(), offs.data_ptr(),
+                       masks.data_ptr(), queries.data_ptr(), out.data_ptr(),
+                       r, b, FILTER_K, FILTER_SALT)
     _build.check(rc, "presence_matrix")
     presence_matrix_cuda.launches += 1
     return out

@@ -91,10 +91,9 @@ def _launch(entry: str, dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
         raise ValueError("n_out and len(x) must fit in int32")
     y = torch.empty((n_out,), dtype=torch.float32, device=dev)
     fn = _build.bind("segment_reduce", _PROTOTYPES)[f"{entry}_launch"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(dst.data_ptr(), seg_id.data_ptr(), wt.data_ptr(),
-                x.data_ptr(), y.data_ptr(), e, x.shape[0], n_out, stream)
+    rc = _build.run_on(dev, fn, dst.data_ptr(), seg_id.data_ptr(),
+                       wt.data_ptr(), x.data_ptr(), y.data_ptr(), e,
+                       x.shape[0], n_out)
     _build.check(rc, entry)
     return y
 

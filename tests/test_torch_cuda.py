@@ -24,6 +24,8 @@ never computed) must equal their plain versions exactly, and a store's
 spine built on the card must equal the CPU store's.  Every test skips
 where there is no card.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -31,11 +33,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import analytics  # noqa: E402
 from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
+from repro_torch.core import filters  # noqa: E402
+from repro_torch.core.store import _stack_presence  # noqa: E402
 from repro_torch.core.types import INVALID_VID  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import lookup  # noqa: E402
 from repro_torch.kernels import merge  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import presence  # noqa: E402
 from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
 SEG_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -111,6 +116,7 @@ def test_cuda_segment_kernels_match_plain_versions():
                                    "gather_segmin": n_calls // 2 + 1,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
+                                   "batched_searchsorted_runs": 0,
                                    "flash_attention": 0}
 
 
@@ -304,8 +310,135 @@ def test_cuda_batched_searchsorted_matches_plain_version():
         assert torch.equal(lookup.batched_searchsorted_cuda(padded, q, n),
                            want)
         n_calls += 1
+    # The Fig 16 L0 run's shape: 504,073 keys in 4,194,304 slots, where the
+    # kernel searches a staged sample and then a window in device memory.
+    keys = torch.full((1 << 22,), INVALID_VID, dtype=torch.int32, device=dev)
+    keys[:504_073] = torch.from_numpy(np.sort(rng.choice(
+        1 << 22, 504_073, replace=False)).astype(np.int32)).to(dev)
+    q = torch.cat([torch.from_numpy(rng.integers(
+        -5, (1 << 22) + 5, 65_536).astype(np.int32)).to(dev),
+        keys[torch.randint(0, 504_073, (64,), device=dev)],
+        torch.tensor([INVALID_VID, -(1 << 31)], dtype=torch.int32,
+                     device=dev)])
+    for n in (504_073, torch.tensor(504_073, dtype=torch.int32, device=dev)):
+        assert torch.equal(lookup.batched_searchsorted_cuda(keys, q, n),
+                           lookup.batched_searchsorted_ref(keys, q, n))
+        n_calls += 1
     torch.cuda.synchronize()
     assert ops.launch_counts()["batched_searchsorted"] == n_calls
+
+
+def _search_runs(rng, k, dev, *, big=False):
+    """k ragged runs laid end to end: capacities of 256 to 4,096 slots
+    (every fifth run empty, some full), INVALID_VID past each run's nv; with
+    ``big``, run 1 holds 504,073 keys in 4,194,304 slots (the staged-sample
+    path).  Returns (keys, int64 offs, int32 nv) on the card."""
+    caps = rng.choice([256, 512, 1024, 2048, 4096], k)
+    if big and k > 1:
+        caps[1] = 1 << 22
+    parts, nvs = [], []
+    for i, cap in enumerate(caps):
+        nv = 0 if i % 5 == 4 else (int(cap) if i % 7 == 3 else
+                                   int(rng.integers(1, cap + 1)))
+        if big and i == 1:
+            nv = 504_073
+        part = np.full(cap, INVALID_VID, np.int32)
+        part[:nv] = np.sort(rng.choice(1 << 22, nv, replace=False))
+        parts.append(part)
+        nvs.append(nv)
+    offs = np.cumsum([0, *caps[:-1]]).astype(np.int64)
+    return (torch.from_numpy(np.concatenate(parts)).to(dev),
+            torch.from_numpy(offs).to(dev),
+            torch.from_numpy(np.asarray(nvs, np.int32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b", [(1, 33), (3, 65_600), (1935, 5_000)])
+def test_cuda_batched_searchsorted_runs_matches_plain_version(k, b):
+    """The one-launch search into every run against its plain version:
+    ragged runs, empty and full ones, a run past the shared-memory stage
+    (k > 1), INVALID_VID and INT32_MIN queries, B not a multiple of 32;
+    exactly one counted launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    keys, offs, nv = _search_runs(rng, k, dev, big=k > 1)
+    q = torch.from_numpy(np.concatenate([
+        rng.integers(-5, (1 << 22) + 5, b - 2),
+        [INVALID_VID, -(1 << 31)]]).astype(np.int32)).to(dev)
+    q[: b // 4] = keys[torch.randint(0, keys.shape[0], (b // 4,),
+                                     device=dev)]
+    before = ops.launch_counts()
+    got = lookup.batched_searchsorted_runs_cuda(keys, offs, nv, q)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"batched_searchsorted_runs": 1}
+    want = lookup.batched_searchsorted_runs_ref(keys, offs, nv, q)
+    assert got.dtype == torch.int32 and got.shape == (k, b)
+    assert torch.equal(got, want)
+    assert bool((got <= nv[:, None]).all())
+
+
+# (filter keys of each run, indices of filterless runs, B).  Filters of
+# FILTER_MIN_BITS (12 keys), segment-sized ones, and ones over the kernel's
+# shared-memory stage (9,000 and 20,000 keys: 8,192 and 16,384 words);
+# R = 1100 and 300 are not multiples of the kernel's run columns (1,056
+# at B = 1 and 212 at B = 16,385 on 132 SMs).
+PRESENCE_CASES = {
+    "r1_b1": ([700], (), 1),
+    "r1_big_b16385": ([20_000], (), 16_385),
+    "mixed_b33": ([1, 12, 9_000, 700, 40, 4_000], (1, 3), 33),
+    "r1100_b1": ([12, 300] * 550, (5,), 1),
+    "r300_b16385": ([4_000, 12, 9_000] + [2_000] * 297, (3, 7), 16_385),
+    "r2048_b16384": ([9_000] + [2_000] * 2047, (3,), 16_384),
+}
+
+
+def _presence_case(rng, sizes, filterless, b, dev):
+    keysets = [np.unique(rng.integers(0, 1 << 22, n)) for n in sizes]
+    filts = [None if i in filterless else filters.from_vkeys(k)
+             for i, k in enumerate(keysets)]
+    words, offs, masks = _stack_presence(
+        [(SimpleNamespace(presence=f), 0) for f in filts], dev)
+    pool = np.concatenate(keysets[:8])
+    q = np.concatenate([rng.choice(pool, b // 2), rng.integers(
+        -(1 << 31), 1 << 31, b - b // 2)]).astype(np.int32)
+    q[:2] = (INVALID_VID, -(1 << 31))[:b]
+    return words, offs, masks, torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PRESENCE_CASES))
+def test_cuda_presence_matches_plain_version(case):
+    """presence_matrix_cuda byte-equal to its plain version: filterless
+    rows, rows on both sides of the shared-memory stage, R = 1 and R not a
+    multiple of the run columns, B = 1, 33, 16,385 (rows not 16-byte
+    aligned) and 16,384; one counted launch a call."""
+    dev = _card()
+    sizes, filterless, b = PRESENCE_CASES[case]
+    rng = np.random.default_rng(len(sizes) * 7 + b)
+    args = _presence_case(rng, sizes, filterless, b, dev)
+    over_stage = int(args[2].max()) // 32 + 1 > presence.stage_words()
+    assert over_stage == (max(sizes) > 8_192)
+    before = ops.launch_counts()["presence_matrix"]
+    got = presence.presence_matrix_cuda(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["presence_matrix"] == before + 1
+    want = presence.presence_matrix_ref(*args)
+    assert got.dtype == torch.bool and got.shape == (len(sizes), b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_presence_repeat_byte_equal():
+    """20 calls of presence_matrix_cuda on the same inputs give the same
+    bytes, equal to the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(20)
+    args = _presence_case(rng, *PRESENCE_CASES["r300_b16385"], dev)
+    want = presence.presence_matrix_ref(*args)
+    for _ in range(20):
+        assert torch.equal(presence.presence_matrix_cuda(*args), want)
 
 
 def _attention_case(rng, b, hq, hkv, sq, skv, d, dtype, dev):

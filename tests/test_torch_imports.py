@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "segment_bench.py",
-    ROOT / "tools" / "segment_variants.py"]
+    ROOT / "tools" / "segment_variants.py", ROOT / "tools" / "probe_bench.py"]
 
 
 def _imported_roots(path: Path):

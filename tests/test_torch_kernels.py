@@ -36,16 +36,32 @@ I32MAX = np.iinfo(np.int32).max
 
 
 # ----------------------------------------------------------------- presence
+# Keys a run: one filter of FILTER_MIN_BITS (12 keys need 192 bits) and one
+# larger than the card kernel stages in shared memory (9,000 keys need
+# 144,000 bits: 8,192 words, twice the 4,096 that ``presence.stage_words()``
+# reads from the built kernel; test_torch_cuda.py holds its cases to it).
+PRESENCE_RUN_KEYS = (1, 40, 700, 12, 9000)
+
+
 def _presence_case(seed, with_filterless):
     rng = np.random.default_rng(seed)
     runs = [rng.integers(0, 1 << 28, n).astype(np.int64)
-            for n in (1, 40, 700)]
+            for n in PRESENCE_RUN_KEYS]
     filts = [filters.from_vkeys(v) for v in runs]
     if with_filterless:
         filts.insert(1, None)
-    queries = np.concatenate([runs[1][:20], runs[2][:30],
+    queries = np.concatenate([runs[1][:20], runs[2][:30], runs[4][:30],
                               rng.integers(0, 1 << 28, 300)]).astype(np.int32)
     return filts, queries
+
+
+def test_presence_case_spans_the_stage_limit():
+    """The cases hold a row of FILTER_MIN_BITS and a row of 8,192 words,
+    over the card kernel's shared-memory stage, beside rows under it."""
+    filts, _ = _presence_case(11, False)
+    words = [f.mbits // 32 for f in filts]
+    assert filts[3].mbits == filters.FILTER_MIN_BITS
+    assert words[4] == 8_192 and max(words[:4]) <= 4_096
 
 
 def _padded(filts):
@@ -303,6 +319,9 @@ def test_launch_counters_ignore_plain_calls():
     ops.gather_segsum_runs(dst, seg, wt, x, n_out=n)
     keys = torch.arange(0, 100, 10, dtype=torch.int32)
     ops.batched_searchsorted(keys, keys, 5)
+    ops.batched_searchsorted_runs(keys, torch.tensor([0, 4]),
+                                  torch.tensor([4, 6], dtype=torch.int32),
+                                  keys)
     q = torch.zeros((1, 2, 128, 32))
     ops.attention(q, q, q, use_pallas=True)
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
@@ -310,6 +329,7 @@ def test_launch_counters_ignore_plain_calls():
                                    "gather_segsum": 0, "gather_segmin": 0,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
+                                   "batched_searchsorted_runs": 0,
                                    "flash_attention": 0}
 
 
@@ -365,10 +385,66 @@ def test_batched_searchsorted_pins_reference_overshoot(n_keys, pallas_want):
     assert int(pallas.max()) == n_keys + 1
 
 
+def _laid_out_runs(rng, caps, nvs):
+    """Runs of sorted distinct keys, INVALID_VID past each run's nv, laid
+    end to end: (per-run keys, keys, int64 offs, int32 nv)."""
+    per_run = []
+    for cap, nv in zip(caps, nvs):
+        k = np.full(cap, I32MAX, np.int32)
+        k[:nv] = np.sort(rng.choice(200_000, nv, replace=False)) - 50_000
+        per_run.append(k)
+    offs = np.cumsum([0, *caps[:-1]]).astype(np.int64)
+    return (per_run, np.concatenate(per_run), offs,
+            np.asarray(nvs, np.int32))
+
+
+@pytest.mark.parametrize("seed,b", [(1, 37), (2, 100), (3, 257)])
+def test_batched_searchsorted_runs_matches_jax(seed, b):
+    """The multi-run search's plain version, row by row, against the JAX
+    package's plain version on each run, and its Pallas search (interpret
+    mode) wherever that does not overshoot: ragged runs with nv = 0 and
+    nv = vcap among them, INVALID_VID pads, INVALID_VID and INT32_MIN
+    queries, B not a multiple of 32.  The dispatching entry points give the
+    same on CPU tensors."""
+    rng = np.random.default_rng(seed)
+    caps = [256, 256, 512, 256, 1024, 256]
+    nvs = [0, 256, 300, 1, 777, 128]
+    per_run, keys, offs, nvs = _laid_out_runs(rng, caps, nvs)
+    queries = np.concatenate([
+        rng.integers(-60_000, 160_000, b - 20),
+        rng.choice(per_run[2][:300], 18), [I32MAX, -(1 << 31)]]
+    ).astype(np.int32)
+    rng.shuffle(queries)
+    args = (torch.from_numpy(keys), torch.from_numpy(offs),
+            torch.from_numpy(nvs), torch.from_numpy(queries))
+    got = lookup.batched_searchsorted_runs_ref(*args)
+    assert got.dtype == torch.int32 and got.shape == (len(caps), b)
+    for r, k in enumerate(per_run):
+        n = int(nvs[r])
+        want = np.asarray(jref.searchsorted_ref(jnp.asarray(k),
+                                                jnp.asarray(queries), n))
+        pallas = np.asarray(jops.batched_searchsorted(
+            jnp.asarray(k), jnp.asarray(queries), n))
+        # The reference's overshoot (ROADMAP, faults): on a full run
+        # (nv = vcap, no pad) its clipped read of keys[n - 1] sends every
+        # query above the last key to n + 1.
+        full = 0 < n == len(k)
+        np.testing.assert_array_equal(
+            pallas, np.where(full & (want == n), n + 1, want))
+        np.testing.assert_array_equal(got[r].numpy(), want)
+    for use_pallas in (True, False):
+        assert torch.equal(ops.batched_searchsorted_runs(
+            *args, use_pallas=use_pallas), got)
+
+
 def test_lookup_wrapper_rejects_cpu_tensors():
     keys = torch.arange(0, 100, 10, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         lookup.batched_searchsorted_cuda(keys, keys, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        lookup.batched_searchsorted_runs_cuda(
+            keys, torch.tensor([0, 4]),
+            torch.tensor([4, 6], dtype=torch.int32), keys)
 
 
 @pytest.mark.cuda
@@ -398,4 +474,5 @@ def test_cuda_kernels_match_plain_versions():
                                    "gather_segsum": 0, "gather_segmin": 0,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
+                                   "batched_searchsorted_runs": 0,
                                    "flash_attention": 0}

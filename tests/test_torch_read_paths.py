@@ -155,6 +155,72 @@ def test_run_lookup_batch_matches_jax(kind, use_pallas):
                                              int(got[1][i]), int(got[2][i]))
 
 
+def _level_stores():
+    """``tests/test_torch_multilevel.py``'s stream in both packages: five
+    flushed parts over 300 vertices with a partial compaction after the
+    third and deletes along the way, so the snapshot holds L0, L1 and L2
+    runs."""
+    rng = np.random.default_rng(5)
+    key = np.unique(rng.integers(0, 300 * 300, 2400))
+    rng.shuffle(key)
+    u, w = key // 300, key % 300
+    stores = _pair(vmax=300, l0_run_limit=2, seg_target_edges=256)
+    parts = np.array_split(np.arange(len(u)), 6)
+    for g in stores:
+        for i, p in enumerate(parts[:5]):
+            g.insert_edges(u[p], w[p])
+            if i:
+                gone = parts[i - 1][:60]
+                g.delete_edges(u[gone], w[gone])
+            g.flush_memgraph()
+            if i == 2:
+                g.compact_partial(1)
+    return stores
+
+
+def _runs_of(snap):
+    return [rf.ensure_loaded() for rf in snap.l0_runs] + [
+        rf.ensure_loaded() for lvl in snap.level_runs for rf in lvl]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_runs_lookup_batch_matches_jax_per_run(use_pallas):
+    """``csr.runs_lookup_batch`` (every run in one multi-run search) on a
+    store with L0, L1 and L2 runs: row r of (found, start, end) byte-equal
+    to the JAX package's ``run_lookup_batch`` on run r (its Pallas search
+    in interpret mode, and its plain search), and to the port's own
+    per-run lookup.  Queries: every vertex, absent ones, INVALID_VID and
+    INT32_MIN, 303 in all (not a multiple of 32)."""
+    jg, pg = _level_stores()
+    js, ps = jg.snapshot(), pg.snapshot()
+    try:
+        assert ps.l0_runs and len(ps.level_runs) > 1 and all(
+            ps.level_runs[:2])
+        jruns, pruns = _runs_of(js), _runs_of(ps)
+        assert len(jruns) == len(pruns) > 3
+        qs = np.r_[np.arange(-1, 300), [np.iinfo(np.int32).max,
+                                        np.iinfo(np.int32).min]
+                   ].astype(np.int32)
+        ops.reset_launches()
+        got = [x.numpy() for x in csr.runs_lookup_batch(
+            pruns, torch.from_numpy(qs), use_pallas=use_pallas)]
+        assert ops.launch_counts()["batched_searchsorted_runs"] == 0
+        for r, (jrun, prun) in enumerate(zip(jruns, pruns)):
+            want = [np.asarray(x) for x in jcsr.run_lookup_batch(
+                jrun, jnp.asarray(qs), use_pallas=use_pallas)]
+            own = csr.run_lookup_batch(prun, torch.from_numpy(qs),
+                                       use_pallas=True)
+            for w, g, o, name in zip(want, got, own,
+                                     ("found", "start", "end")):
+                assert w.dtype == g.dtype, name
+                np.testing.assert_array_equal(g[r], w, err_msg=name)
+                np.testing.assert_array_equal(g[r], o.numpy(), err_msg=name)
+        assert got[0].any() and not got[0][:, -2:].any()
+    finally:
+        js.release()
+        ps.release()
+
+
 # ------------------------------------------------------------- read paths
 def test_no_index_batch_equals_scalar_matches_jax():
     """``test_read_batch.py::test_batched_no_index_ablation``: the read

@@ -1,6 +1,6 @@
 """The port's kernel timing scripts run on the CPU as far as they can: the
 text edits of ``tools/segment_variants.py`` still find their anchors in the
-checkout's ``csrc/segment_reduce.cu``, and both scripts refuse to run
+checkout's ``csrc/segment_reduce.cu``, and every script refuses to run
 without a card."""
 import sys
 from pathlib import Path
@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 sys.path.insert(0, str(ROOT))
 
+import probe_bench  # noqa: E402
 import segment_bench  # noqa: E402
 import segment_variants  # noqa: E402
 
@@ -49,3 +50,11 @@ def test_scripts_need_a_card(script, tmp_path):
         pytest.skip("a card is present: the refusal cannot be shown")
     argv = ["--parent", str(tmp_path / "none.cu")]
     assert script.main(argv) == 1
+
+
+def test_probe_bench_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal cannot be shown")
+    none = str(tmp_path / "none.cu")
+    assert probe_bench.main(["--parent-presence", none,
+                             "--parent-lookup", none, "--o0"]) == 1
