@@ -65,10 +65,25 @@ line):
    True)``; each held against the plain version on the inputs upcast to
    float32.  ``flash_attention`` must launch in it: the bfloat16 calls on
    the tensor-core kernel, the float32 call on the CUDA-core one.
-7. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
+7. Durable and concurrent, at the same scale: phase 3's stream (not
+   generated again) and ``StoreConfig`` through ``open_store`` on the card
+   (``wal_sync="batch"``, in a fresh temporary directory, removed at the
+   end; the phase first checks the free disk space) wrapped by
+   ``ConcurrentLSMGraph``, while a reader thread pins a snapshot each time
+   the ingest passes another eighth of the stream and reads 4,096 of phase
+   3's queries, each read equal to the oracle of the records below its
+   snapshot's τ.  Then ``close()`` with no final flush, ``open_store`` of
+   the directory (L1 runs under L2 runs, a WAL tail replayed), the read of
+   phase 3's queries equal to the oracle with ``presence_matrix`` and
+   ``merge_pairs`` launched (one a round) and no ``merge_perm``, every run
+   evicted and the same read cold through the prefetch path, and
+   ``scrub_once()`` finding nothing.  It prints the durable ingest rate
+   beside phase 3's, the bytes written, the recovery, the cold read and
+   the peak device memory.
+8. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 6 and read just
+The launch counters are zeroed just before phases 3 to 7 and read just
 after each.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
@@ -77,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -350,6 +366,17 @@ def lww_csr(src, dst, ins, prop, n: int):
             prop[live].astype(np.float32))
 
 
+def _spine_rounds(state):
+    """(sealed runs, rounds of the spine's tournament) of a state: one
+    round of merge_pairs a halving of the runs, and one more when a sealed
+    MemGraph rides the spine."""
+    bad = {r.fid for r in state.degraded}
+    runs = sum(1 for lvl in state.levels for rf in lvl
+               if rf.nv > 0 and rf.fid not in bad)
+    handoff = state.mem_full is not None and int(state.mem_full.ne) != 0
+    return runs, (runs - 1).bit_length() + int(handoff and runs > 0)
+
+
 def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
     """Drive the port's write and read path; return its measurements, the
     store and the stream's last-writer-wins CSR."""
@@ -424,24 +451,16 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
     s_all = np.concatenate(s_parts).astype(np.int64)
     d_all = np.concatenate(d_parts).astype(np.int64)
     ins_all = np.concatenate(i_parts)
+    p_all = np.concatenate(p_parts)
     t0 = time.perf_counter()
-    oracle = lww_csr(s_all, d_all, ins_all, np.concatenate(p_parts),
-                     cfg.vmax)
+    oracle = lww_csr(s_all, d_all, ins_all, p_all, cfg.vmax)
     log(f"oracle: last-writer-wins CSR of {oracle[1].shape[0]} live edges "
         f"in {time.perf_counter() - t0:.1f} s (numpy)")
     deg = np.bincount(s_all[ins_all], minlength=cfg.vmax)
     top = np.argsort(-deg, kind="stable")[:64]
     queries = np.unique(np.concatenate([
         rng.choice(cfg.vmax, n_queries, replace=False), top]))
-    # The spine's tournament: one round of merge_pairs per halving of the
-    # sealed runs, and one more when a sealed MemGraph rides the spine.
-    state = store._state
-    bad = {r.fid for r in state.degraded}
-    spine_runs = sum(1 for lvl in state.levels for rf in lvl
-                     if rf.nv > 0 and rf.fid not in bad)
-    handoff = state.mem_full is not None and int(state.mem_full.ne) != 0
-    spine_rounds = (spine_runs - 1).bit_length() + int(
-        handoff and spine_runs > 0)
+    spine_runs, spine_rounds = _spine_rounds(store._state)
     snap = store.snapshot()
     try:
         t0 = time.perf_counter()
@@ -475,7 +494,9 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
                 runs=runs, spine_ms=t_spine * 1e3, spine_runs=spine_runs,
                 spine_rounds=spine_rounds,
                 resolve_ms_per_chunk=resolve_ms, queries=len(queries),
-                peak_gib=peak)
+                peak_gib=peak,
+                stream=dict(src=s_all, dst=d_all, ins=ins_all, prop=p_all,
+                            sizes=[len(x) for x in s_parts]))
 
 
 def check_merge_pairs(store, log=print):
@@ -1365,6 +1386,306 @@ def check_attention(qwen, bench, outs, log=print):
                    limit_shares=ratios))
 
 
+# ------------------------------------------------------------------ phase 7
+# Bytes a durable run of the stream may hold on disk at once: each record
+# is 17 bytes in the WAL and in a segment (dst, ts, prop, marker), the live
+# segments and a compaction's new outputs (written before the files they
+# replace go) are about twice the records, and the retained WAL
+# generations stay below one more copy.
+DURABLE_BYTES_PER_RECORD = 3 * 17
+
+
+def _prefix_reads(stream, queries):
+    """A last-writer-wins oracle of every stream prefix for ``queries``:
+    ``at(tau)`` is the adjacency of each query from the first ``tau``
+    records (the records whose ts is below a snapshot's τ)."""
+    src, dst, ins = stream["src"], stream["dst"], stream["ins"]
+    pick = np.flatnonzero(np.isin(src, queries))
+    if pick.size == 0:
+        return lambda tau: [np.empty(0, np.int64) for _ in queries]
+    key = (src[pick] << 32) | dst[pick]
+    order = np.lexsort((pick, key))
+    pick, key = pick[order], key[order]
+    start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    q_of = src[pick[start]]
+
+    def at(tau: int):
+        seen = np.add.reduceat((pick < tau).astype(np.int64), start)
+        last = pick[start + np.maximum(seen, 1) - 1]
+        live = (seen > 0) & ins[last]
+        s, d = q_of[live], dst[last[live]]
+        pos = np.searchsorted(s, queries)
+        end = np.searchsorted(s, queries, side="right")
+        return [d[a:b] for a, b in zip(pos, end)]
+    return at
+
+
+def durable_path(dev, cfg, stream, queries, oracle, seed, log=print):
+    """Phase 3's stream through a durable store on the card, wrapped by
+    ``ConcurrentLSMGraph`` (group-commit WAL, a writer thread, a background
+    compactor) while a reader thread pins snapshots; then close with a WAL
+    tail, recover, read, evict every run, read cold, scrub.  Every read is
+    held against the last-writer-wins oracle at its snapshot's τ.  The
+    store lives in a fresh temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    n_rec = int(stream["src"].shape[0])
+    root = tempfile.mkdtemp(prefix="lsmg-durable-")
+    try:
+        free = shutil.disk_usage(root).free
+        need = n_rec * DURABLE_BYTES_PER_RECORD
+        log(f"disk: {free / 2**30:.2f} GiB free under {root}, the phase "
+            f"needs up to {need / 2**30:.2f} GiB")
+        if free < need:
+            raise AssertionError(
+                f"not enough disk for the durable phase: {free} bytes free, "
+                f"{need} needed ({n_rec} records x "
+                f"{DURABLE_BYTES_PER_RECORD} bytes)")
+        return _durable_run(dev, cfg, stream, queries, oracle, seed, root,
+                            log)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _durable_run(dev, cfg, stream, queries, oracle, seed, root, log):
+    import threading
+
+    import torch
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def allocated():
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    mem = {"start": allocated()}
+    from repro_torch import obs
+    from repro_torch.core.concurrent import ConcurrentLSMGraph
+    from repro_torch.kernels import ops
+    from repro_torch.storage import open_store
+
+    src, dst, ins, prop = (stream[k] for k in ("src", "dst", "ins", "prop"))
+    rng = np.random.default_rng(seed + 11)
+    q_conc = np.sort(rng.choice(queries, min(4096, len(queries)),
+                                replace=False))
+    prefix = _prefix_reads(stream, q_conc)
+    store = open_store(root, cfg, device=dev, wal_sync="batch")
+    label = store.obs_label
+    g = ConcurrentLSMGraph(store=store)
+    pins, failures = [], []
+    ingest_done = threading.Event()
+
+    n_rec = int(src.shape[0])
+
+    def read():
+        with g.snapshot() as snap:
+            tau = snap.tau
+            t0 = time.perf_counter()
+            out = snap.neighbors_batch(q_conc)
+            pins.append((tau, out, time.perf_counter() - t0,
+                         ingest_done.is_set()))
+
+    def reader():
+        # Pins a snapshot, reads, releases: once each time the ingest
+        # passes another eighth of the stream, then until three in all.
+        try:
+            for mark in (n_rec * k // 8 for k in range(1, 8)):
+                while store.tau < mark and not ingest_done.is_set():
+                    ingest_done.wait(0.01)
+                if ingest_done.is_set():
+                    break
+                read()
+            while len(pins) < 3:
+                read()
+        except BaseException as e:  # surfaced by the main thread
+            failures.append(e)
+
+    t_reader = threading.Thread(target=reader, name="durable-reader")
+    t0 = time.perf_counter()
+    t_reader.start()
+    try:
+        off = 0
+        for n in stream["sizes"]:
+            sl = slice(off, off + n)
+            if ins[off]:
+                g.insert_edges(src[sl], dst[sl], prop=prop[sl])
+            else:
+                g.delete_edges(src[sl], dst[sl])
+            off += n
+        g.flush()                  # every queued batch applied
+        sync()
+        t_ingest = time.perf_counter() - t0
+    finally:
+        ingest_done.set()
+        t_reader.join(timeout=600)
+        if sys.exc_info()[0] is not None:
+            g.close()              # stop the writer and the compactor
+    if t_reader.is_alive():
+        raise AssertionError("the reader thread did not finish")
+    if failures:
+        g.close()
+        raise failures[0]
+    during = sum(1 for p in pins if not p[3])
+    if during < 3:
+        raise AssertionError(f"only {during} snapshots were read during "
+                             f"the ingest (want at least 3)")
+    for tau, out, _dt, _late in pins:
+        want = prefix(tau)
+        bad = [int(q) for q, a, b in zip(q_conc, out, want)
+               if not np.array_equal(a, b)]
+        if bad:
+            raise AssertionError(
+                f"snapshot at tau {tau}: {len(bad)} of {len(q_conc)} "
+                f"adjacency lists differ from the oracle, first {bad[:5]}")
+    taus = [p[0] for p in pins]
+    read_ms = [p[2] * 1e3 for p in pins]
+    log(f"concurrent reads: {len(pins)} snapshots ({during} during the "
+        f"ingest) at tau {taus[0]} .. {taus[-1]}, {len(q_conc)} queries "
+        f"each, equal to the oracle at each tau; read wall median "
+        f"{float(np.median(read_ms)):.1f} ms, max {max(read_ms):.1f} ms")
+    comp = obs.REGISTRY.find("store_compaction_seconds", store=label)
+    compactions = {h.labels["level"]: h.count for h in comp}
+    flush = obs.REGISTRY.histogram("store_flush_seconds", store=label)
+    flushes = flush.count
+    # Where the ingest's time went, by the store's and the engine's spans
+    # (host clock; the writer's MemGraph inserts and the compactor's flushes
+    # and compactions overlap, the segment writes and fsyncs lie inside
+    # the flushes and compactions).
+    spans = {
+        "memgraph_inserts": obs.REGISTRY.histogram(
+            "store_apply_seconds", store=label).sum,
+        "flushes": flush.sum,
+        "compactions": {h.labels["level"]: round(h.sum, 2) for h in comp},
+        "segment_writes": obs.REGISTRY.histogram(
+            "storage_segment_write_seconds").sum,
+        "wal_appends": obs.REGISTRY.histogram(
+            "storage_wal_append_seconds").sum,
+        "wal_fsyncs": obs.REGISTRY.histogram(
+            "storage_wal_fsync_seconds").sum}
+    io = store.io
+    wal_b, seg_b, man_b = io.wal_write, io.segment_write, io.manifest_write
+    log(f"durable ingest: {n_rec} records in {t_ingest:.1f} s = "
+        f"{n_rec / t_ingest:.0f} records/s (wal_sync=batch); flushes "
+        f"{flushes}, compactions by target level {compactions}; written: "
+        f"WAL {wal_b} B, segments {seg_b} B, manifest {man_b} B")
+    log("durable ingest time (spans, host clock, s): " + ", ".join(
+        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in spans.items()))
+    tail = store.n_edges_cached()
+    if tail == 0:
+        raise AssertionError("no MemGraph tail at close: nothing to replay")
+    mem["ingested"] = allocated()
+    g.close()                      # no final flush: the WAL holds the tail
+    del g, store
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mem["closed"] = allocated()
+
+    t0 = time.perf_counter()
+    store = open_store(root, device=dev)
+    sync()
+    t_recover = time.perf_counter() - t0
+    mem["recovered"] = allocated()
+    label = store.obs_label
+    replayed = sum(c.value for name in ("store_edges_inserted_total",
+                                        "store_edges_deleted_total")
+                   for c in obs.REGISTRY.find(name, store=label))
+    runs = [len(lvl) for lvl in store.levels]
+    sizes = store.level_sizes()
+    l1_under_l2 = sum(1 for a in store.levels[1] for b in store.levels[2]
+                      if a.min_vid <= b.max_vid and b.min_vid <= a.max_vid)
+    log(f"recovery: {t_recover:.1f} s; {len(store.runs_by_fid)} segments "
+        f"loaded, {replayed} WAL records replayed (tail {tail}); levels: "
+        f"edges {sizes}, runs {runs}; {l1_under_l2} (L1, L2) run pairs "
+        f"overlap")
+    if not (runs[1] and runs[2]):
+        raise AssertionError(f"L1 and L2 not both live after reopen: {runs}")
+    if l1_under_l2 == 0:
+        raise AssertionError("no L1 run overlaps an L2 run: the recovery "
+                             "case of the reference's fault is not reached")
+
+    rounds = _spine_rounds(store._state)[1]
+    counts0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    with store.snapshot() as snap:
+        out = snap.neighbors_batch(queries)
+    del snap
+    t_read = time.perf_counter() - t0
+    counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    n_out = check_oracle(queries, out, oracle, "the read after reopen")
+    log(f"read after reopen: {len(queries)} queries ({n_out} edges) equal "
+        f"to the oracle in {t_read * 1e3:.1f} ms; launches {counts}")
+    if cuda:   # a CPU rehearsal runs the plain versions: no launches
+        need_launches(counts, ("presence_matrix", "merge_pairs"),
+                      "the read after reopen")
+    if cuda and (counts["merge_pairs"], counts["merge_perm"]) != (rounds, 0):
+        raise AssertionError(
+            f"the read after reopen launched merge_pairs "
+            f"{counts['merge_pairs']} times (want {rounds}, one a round) "
+            f"and merge_perm {counts['merge_perm']} times (want 0)")
+
+    resident = mem["read"] = allocated()
+    n_evicted = store.durability.evict_all_segments()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    after_evict = mem["evicted"] = allocated()
+    cold0, seg0 = store.io.cold_load, store.io.segment_read
+    sched = obs.REGISTRY.counter("read_prefetch_scheduled_total")
+    sched0 = sched.value
+    t0 = time.perf_counter()
+    with store.snapshot() as snap:
+        out = snap.neighbors_batch(queries)
+    del snap
+    sync()
+    t_cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    mem["cold_read"] = allocated()
+    log("device memory allocated (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.3f}" for k, v in mem.items())
+        + f"; peak of the cold read {peak / 2**30:.3f}")
+    check_oracle(queries, out, oracle, "the cold read")
+    cold_b, seg_rb = store.io.cold_load - cold0, store.io.segment_read - seg0
+    log(f"cold read: {n_evicted} runs evicted (device memory "
+        f"{resident / 2**30:.2f} -> {after_evict / 2**30:.2f} GiB); "
+        f"{len(queries)} queries equal to the oracle in {t_cold * 1e3:.1f} "
+        f"ms; {sched.value - sched0} prefetches scheduled; io.cold_load "
+        f"{cold_b} B, segment bytes read {seg_rb} B; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    scrub = store.durability.scrub_once()
+    t_scrub = time.perf_counter() - t0
+    log(f"scrub: {scrub} in {t_scrub:.1f} s")
+    if scrub["verified"] != len(store.runs_by_fid) or any(
+            scrub[k] for k in ("healed_resident", "rebuilt", "degraded",
+                               "transient")):
+        raise AssertionError(f"scrub_once found trouble: {scrub}")
+    disk = store.disk_bytes()
+    store.close()
+    return dict(records=n_rec, ingest_s=t_ingest,
+                records_per_s=n_rec / t_ingest, spans_s=spans,
+                flushes=flushes,
+                compactions=compactions, wal_bytes=wal_b,
+                segment_bytes=seg_b, manifest_bytes=man_b,
+                snapshots=len(pins), snapshots_during_ingest=during,
+                read_ms_median=float(np.median(read_ms)),
+                recovery_s=t_recover, segments_loaded=sum(runs),
+                wal_records_replayed=int(replayed), wal_tail=tail,
+                level_sizes=sizes, runs=runs, l1_l2_overlaps=l1_under_l2,
+                reopen_read_ms=t_read * 1e3, reopen_launches=counts,
+                evicted=n_evicted, resident_gib=resident / 2**30,
+                after_evict_gib=after_evict / 2**30,
+                cold_read_ms=t_cold * 1e3, cold_load_bytes=cold_b,
+                segment_read_bytes=seg_rb, cold_peak_gib=peak / 2**30,
+                scrub=scrub, scrub_s=t_scrub, disk_bytes=disk,
+                allocated_gib={k: v / 2**30 for k, v in mem.items()})
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -1430,7 +1751,7 @@ def main(argv=None) -> int:
             f"(want one a round: {stats['spine_rounds']}) and merge_perm "
             f"{got_rounds[1]} times (want 0)")
     store, queries = stats.pop("store"), stats.pop("query_vertices")
-    oracle = stats.pop("oracle")
+    oracle, stream = stats.pop("oracle"), stats.pop("stream")
     print(f"main path (store): {json.dumps(stats)}")
     profile_read(store, queries, dev)
     with _uncounted():
@@ -1511,7 +1832,32 @@ def main(argv=None) -> int:
                   "the attention path")
     rows.append(check_attention(qwen, bench, outs))
     print(f"main path (attention): phase {time.perf_counter() - t0:.1f} s")
-    for r in rows[-3:]:
+    rows_attention = rows[-3:]
+    del qwen, bench, outs
+    # The profiled read's frame, which torch.profiler keeps alive until a
+    # collection, still holds phase 3's store (about 9 GiB on the card).
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before phase 7: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dur = durable_path(dev, store_config(), stream, queries, oracle,
+                       args.seed)
+    launches["durable"] = ops.launch_counts()
+    print(f"main path (durable) launches: {launches['durable']}")
+    need_launches(launches["durable"], ("presence_matrix", "merge_pairs"),
+                  "the durable path")
+    if launches["durable"]["merge_perm"]:
+        raise AssertionError("the durable path launched merge_perm")
+    print(f"main path (durable): ingest {dur['records_per_s']:.0f} "
+          f"records/s durable and concurrent against "
+          f"{stats['records'] / stats['ingest_s']:.0f} records/s in memory "
+          f"(phase 3) [{smi}]")
+    print(f"main path (durable): {json.dumps(dur)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"
         dev_ms = (f" ({r['device_ms']:.4f} ms device)"
                   if "device_ms" in r else "")

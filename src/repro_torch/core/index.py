@@ -23,7 +23,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .types import INVALID_VID
+from .types import BYTES_PER_INDEX_ENTRY, INVALID_VID
 
 _I32 = torch.int32
 
@@ -49,6 +49,11 @@ def empty_index(vmax: int, n_levels: int, device) -> IndexState:
         lvl_fid=torch.full((vmax, n_levels), INVALID_VID, dtype=_I32,
                            device=device),
         lvl_off=torch.zeros((vmax, n_levels), dtype=_I32, device=device))
+
+
+def index_nbytes_dense(vmax: int, n_levels: int) -> int:
+    """Bytes the dense index accounts for (the in-memory space proxy)."""
+    return vmax * (2 + 2 * n_levels) * BYTES_PER_INDEX_ENTRY
 
 
 def note_l0_flush(idx: IndexState, vkeys: torch.Tensor, nv,

@@ -17,6 +17,12 @@ Every tensor lives on the store's device.  Concurrency follows the
 reference: all mutable state is one immutable, atomically published
 ``StoreState``; writers build the next one off to the side and swap it in
 under a short host-only commit lock; snapshots take no writer lock.
+
+A store built with a ``durability`` engine (``repro_torch.storage``,
+through ``open_store``) logs every batch to the WAL before it enters the
+MemGraph, writes segment files at flush and compaction, and reloads
+evicted runs from disk, the cold ones through ``prefetch_pool``.  Every
+thread the store and the engine start keeps the device's default stream.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import itertools
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +63,30 @@ def _read_filters_enabled() -> bool:
 # takes the legacy concat-then-lexsort path (an escape hatch, read once at
 # import as in the reference).
 _READ_TOURNAMENT_MAX_K = int(os.environ.get("LSMG_READ_TOURNAMENT_K", "8"))
+
+
+# Shared background pool for cold-segment loads: prefetch submissions from
+# the read path overlap disk reads and uploads with the foreground's device
+# dispatch.  Process-wide and created lazily, so pure in-memory stores never
+# spawn threads.  Narrow by default: a segment load is partly host work
+# (CRC, copy), and one background loader plus the foreground thread already
+# forms the two-stage pipeline.
+_PREFETCH_WORKERS = int(os.environ.get(
+    "LSMG_PREFETCH_WORKERS",
+    str(max(1, min(4, (os.cpu_count() or 2) - 1)))))
+_PREFETCH_POOL: Optional[ThreadPoolExecutor] = None
+_PREFETCH_POOL_LOCK = threading.Lock()
+
+
+def prefetch_pool() -> ThreadPoolExecutor:
+    global _PREFETCH_POOL
+    if _PREFETCH_POOL is None:
+        with _PREFETCH_POOL_LOCK:
+            if _PREFETCH_POOL is None:
+                _PREFETCH_POOL = ThreadPoolExecutor(
+                    max_workers=_PREFETCH_WORKERS,
+                    thread_name_prefix="lsm-prefetch")
+    return _PREFETCH_POOL
 
 
 # Per-process store ordinal for metric labels (the port's own registry, so
@@ -134,7 +165,14 @@ def _spine_run_streams(runs, rid_base: int = 0, lead=None):
     global slot index over every run's ``voff[1:]`` shifted to the run's
     first slot (the runs' ranges do not overlap, so each slot finds its
     own run's vertex), and ``rid`` one ``repeat_interleave`` with its
-    output size given, so the host never waits on the card."""
+    output size given, so the host never waits on the card.  Cold
+    (evicted) runs are all put on the prefetch pool first, so their loads
+    overlap each other and the foreground's."""
+    pool = None
+    for rf, _col in runs:
+        if rf.arrays is None:
+            pool = pool or prefetch_pool()
+            rf.prefetch(pool)
     arrays = [rf.ensure_loaded() for rf, _col in runs]
     dev = arrays[0].dst.device
     ecap = np.array([a.ecap for a in arrays], np.int64)
@@ -404,8 +442,8 @@ class LSMGraph:
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
-        # Optional durability engine hooks; None = in-memory store (the only
-        # mode the port has so far).
+        # Optional durability engine (repro_torch.storage.DurableStorage):
+        # WAL / segment-file / manifest hooks.  None = in-memory store.
         self.durability = durability
         self._lock = threading.RLock()
         self._write_lock = threading.RLock()
@@ -439,6 +477,7 @@ class LSMGraph:
                                                store=self.obs_label)
         self._obs_filter_fp = obs.counter(
             "read_filter_false_positive_total", store=self.obs_label)
+        self.on_flush_needed = None  # callback for the concurrent wrapper
         self._ts = 0
         self._next_fid = 0
         self._next_mem_id = 1
@@ -501,10 +540,21 @@ class LSMGraph:
                 reg.remove("store_level_runs", store=self.obs_label,
                            level=str(i))
 
+    def note_health_change(self) -> None:
+        """Republish after a quarantine or heal: the next state carries the
+        live degraded set and a FRESH spine handle, so spines built from
+        here on exclude (or re-include) the affected segments.  Called by
+        the storage engine off the serving path."""
+        deg = self.degraded_ranges()
+        with self._lock:
+            self._swap_state(degraded=deg, spine=_SpineHandle())
+
     def drop_read_spine(self) -> None:
         """Forget every cached merged read view: reset the splice cache and
         publish a fresh spine handle, so the next snapshot read rebuilds
-        the spine from the run arrays."""
+        the spine from the run arrays.  Pairs with the storage engine's
+        segment eviction: without it the state's spine would keep serving
+        (and holding device memory for) merged copies of evicted runs."""
         self._spine_cache = _SpineCache(self.device)
         with self._lock:
             self._swap_state(spine=_SpineHandle())
@@ -520,15 +570,23 @@ class LSMGraph:
 
     # ----------------------------------------------------------------- write
     def insert_edges(self, src, dst, prop=None) -> Optional[int]:
-        """Insert a batch (chunked by ``batch_cap``).  Durable stores would
-        return a WAL commit seq; in-memory: None."""
+        """Insert a batch (chunked by ``batch_cap``).  Durable stores return
+        the WAL commit seq of the last appended record (awaitable via
+        ``ack``); in-memory: None."""
         return self._apply(src, dst, prop, delete=False)
 
     def delete_edges(self, src, dst) -> Optional[int]:
-        """Deletion = tombstone record (annihilates at read & compaction)."""
+        """Deletion = tombstone record (annihilates at read & compaction).
+        Returns the WAL commit seq like ``insert_edges``."""
         return self._apply(src, dst, None, delete=True)
 
-    def _apply(self, src, dst, prop, *, delete: bool) -> Optional[int]:
+    def _apply_no_flush(self, src, dst, prop, *, delete: bool) -> Optional[int]:
+        """Ingest without the inline flush trigger — the concurrent wrapper's
+        background compactor owns flush/compaction."""
+        return self._apply(src, dst, prop, delete=delete, allow_flush=False)
+
+    def _apply(self, src, dst, prop, *, delete: bool,
+               allow_flush: bool = True) -> Optional[int]:
         src = np.asarray(src, np.int32).ravel()
         dst = np.asarray(dst, np.int32).ravel()
         if prop is None:
@@ -540,6 +598,18 @@ class LSMGraph:
         for off in range(0, len(src), bc):
             s, d, p = src[off:off + bc], dst[off:off + bc], prop[off:off + bc]
             n = len(s)
+            if not allow_flush:
+                # Backstop for the concurrent wrapper: if the background
+                # compactor lags and the cache hits hard capacity, wait.
+                deadline = time.time() + 60.0
+                while self._mem_hard_full() and time.time() < deadline:
+                    if self.on_flush_needed is not None:
+                        self.on_flush_needed()
+                    time.sleep(0.001)
+                if self._mem_hard_full():
+                    raise RuntimeError(
+                        "background flush did not relieve a hard-full "
+                        "MemGraph within 60 s")
             marker = np.full(n, delete, bool)
             t_chunk = time.perf_counter()
             with self._write_lock:
@@ -548,6 +618,8 @@ class LSMGraph:
                     ts = np.arange(self._ts, self._ts + n, dtype=np.int32)
                     self._ts += n
                     if self.durability is not None:
+                        # WAL-before-MemGraph: the batch is logged before it
+                        # can become readable; fsync group-commits off-path.
                         commit_seq = self.durability.on_apply(
                             s, d, ts, marker, p)
                 # Device-side insert OUTSIDE the commit lock; only the
@@ -555,6 +627,8 @@ class LSMGraph:
                 new_mem, ok = self._insert_batch(st.mem, s, d, ts, marker, p)
                 if not ok:
                     if self.durability is not None:
+                        # Keep WAL == acknowledged state: replay must not
+                        # resurrect a batch whose insert raised.
                         self.durability.on_apply_abort(int(ts[0]) if n else -1)
                     raise RuntimeError(
                         "MemGraph capacity/hash overflow — raise mem caps")
@@ -565,7 +639,8 @@ class LSMGraph:
             self._obs_apply.observe(time.perf_counter() - t_chunk)
             self._obs_ingest_bytes.inc(n * _REC_BYTES)
             (self._obs_edges_del if delete else self._obs_edges_ins).inc(n)
-            if mg_mod.memgraph_should_flush(self._state.mem, self.cfg):
+            if allow_flush and mg_mod.memgraph_should_flush(
+                    self._state.mem, self.cfg):
                 self.flush_memgraph()
         return commit_seq
 
@@ -582,6 +657,45 @@ class LSMGraph:
         new_mem, ok = mg_mod.insert_batch(mem, batch,
                                           mode=self.cfg.memcache_mode)
         return new_mem, bool(ok)
+
+    def _ingest_replay(self, src, dst, ts, marker, prop) -> None:
+        """Recovery-only ingest: re-insert WAL records with their ORIGINAL
+        timestamps (no WAL re-append — the records are already on disk).
+        Flushes triggered here follow the normal durable path, advancing the
+        WAL floor as they land."""
+        src = np.asarray(src, np.int32).ravel()
+        dst = np.asarray(dst, np.int32).ravel()
+        ts = np.asarray(ts, np.int32).ravel()
+        marker = np.asarray(marker, bool).ravel()
+        prop = np.asarray(prop, np.float32).ravel()
+        bc = self.cfg.batch_cap
+        for off in range(0, len(src), bc):
+            s, d = src[off:off + bc], dst[off:off + bc]
+            t, m, p = ts[off:off + bc], marker[off:off + bc], prop[off:off + bc]
+            with self._write_lock:
+                st = self._state
+                with self._lock:
+                    self._ts = max(self._ts, int(t[-1]) + 1)
+                new_mem, ok = self._insert_batch(st.mem, s, d, t, m, p)
+                if not ok:
+                    raise RuntimeError(
+                        "MemGraph overflow during WAL replay — raise mem caps")
+                with self._lock:
+                    self._swap_state(mem=new_mem, tau=self._ts)
+            n, nd = len(s), int(np.count_nonzero(m))
+            self._obs_ingest_bytes.inc(n * _REC_BYTES)
+            self._obs_edges_del.inc(nd)
+            self._obs_edges_ins.inc(n - nd)
+            if mg_mod.memgraph_should_flush(self._state.mem, self.cfg):
+                self.flush_memgraph()
+
+    def _mem_hard_full(self) -> bool:
+        mem = self._state.mem
+        ovf_n, n_rows = (int(x) for x in
+                         torch.stack([mem.ovf_n, mem.n_rows]).tolist())
+        return (ovf_n >= self.cfg.ovf_cap - self.cfg.batch_cap
+                or n_rows >= self.cfg.n_segments - self.cfg.batch_cap
+                or n_rows >= int(0.72 * self.cfg.hash_slots))
 
     # ----------------------------------------------------------------- flush
     def flush_memgraph(self) -> Optional[RunFile]:
@@ -872,17 +986,84 @@ class LSMGraph:
         self.versions.pin(st.version, st.tau)
         return Snapshot(self, st)
 
+    def query_edge(self, u: int, v: int) -> bool:
+        with self.snapshot() as snap:
+            return bool(snap.query_edges_batch([u], [v])[0])
+
+    def query_edges_batch(self, us, vs) -> np.ndarray:
+        """Batched point-membership: one snapshot, one batched resolve."""
+        with self.snapshot() as snap:
+            return snap.query_edges_batch(us, vs)
+
+    # ------------------------------------------------------------ durability
+    def sync(self) -> None:
+        """Durability barrier: fsync the WAL tail (no-op when in-memory)."""
+        if self.durability is not None:
+            self.durability.sync()
+
+    def ack(self, commit_seq: Optional[int]) -> None:
+        """Await durability of ONE write batch: blocks until the WAL record
+        with ``commit_seq`` (returned by ``insert_edges``/``delete_edges``)
+        is fsynced.  No-op for in-memory stores or a ``None`` seq."""
+        if commit_seq is not None and self.durability is not None:
+            self.durability.sync_upto(commit_seq)
+
+    def _install_recovered(self, levels, index, tau: int,
+                           next_fid: int) -> None:
+        """Publish the initial state reconstructed by ``storage.recovery``:
+        one swap installs the recovered run membership, rebuilt index, and
+        replayed tau (recovery builds its level lists locally, never
+        poking published state)."""
+        levels_t = tuple(tuple(lvl) for lvl in levels)
+        runs = {r.fid: r for lvl in levels_t for r in lvl}
+        deg = self.degraded_ranges()
+        with self._flush_lock, self._write_lock:
+            with self._fid_lock:
+                self._next_fid = max(self._next_fid, next_fid)
+            with self._lock:
+                self._ts = max(self._ts, tau)
+                st = self._state
+                version = self.versions.publish(
+                    (st.mem_id,) + ((st.mem_full_id,)
+                                    if st.mem_full_id is not None else ()),
+                    tuple(r.fid for r in levels_t[0]), self._ts)
+                self._swap_state(levels=levels_t, index=index,
+                                 runs_by_fid=runs, tau=self._ts,
+                                 version=version, degraded=deg,
+                                 spine=_SpineHandle())
+        self._obs_update_level_gauges(levels_t)
+
     def degraded_ranges(self) -> tuple:
-        """Vertex ranges whose durable data is unreadable: always empty for
-        the in-memory store."""
+        """Vertex ranges whose on-disk data is quarantined/unreadable
+        (``storage.errors.DegradedRange`` tuples).  Empty for in-memory
+        stores and healthy durable stores.  Queries overlapping a degraded
+        range raise a typed ``CorruptionError`` instead of returning
+        silently-incomplete adjacency."""
         if self.durability is not None and \
                 hasattr(self.durability, "degraded_ranges"):
             return self.durability.degraded_ranges()
         return ()
 
+    def close(self) -> None:
+        """Flush WAL buffers and release file handles.  The store stays
+        usable for reads but further writes are undefined; reopen via
+        ``repro_torch.storage.open_store``."""
+        if self.durability is not None:
+            self.durability.close()
+
     # ----------------------------------------------------------------- stats
     def level_sizes(self) -> List[int]:
         return [sum(r.ne for r in lvl) for lvl in self.levels]
+
+    def disk_bytes(self) -> int:
+        """Space cost (Fig 14).  Durable mode reports ACTUAL on-disk bytes
+        (WAL + segments + manifest); in-memory mode keeps the byte-accounting
+        proxy over live runs + index."""
+        if self.durability is not None:
+            return self.durability.disk_bytes()
+        run_bytes = sum(r.nbytes for lvl in self.levels for r in lvl)
+        return run_bytes + mlindex.index_nbytes_dense(
+            self.cfg.vmax, self.cfg.n_levels)
 
 
 def slice_adjacency(offs: np.ndarray, dst: np.ndarray, prop: np.ndarray,
@@ -942,6 +1123,10 @@ class Snapshot:
         self.level_runs: List[List[RunFile]] = [
             [r for r in lvl if r.fid not in bad_fids]
             for lvl in state.levels[1:]]
+        # Evicted (durable, cold) segments stay cold at pin time: every read
+        # path materializes lazily via ensure_loaded, and a run's file can't
+        # vanish under a pin — compaction re-materializes the runs it removes
+        # before unlinking their files (engine.on_compact_commit).
         self.runs_by_fid = {r.fid: r
                             for lvl in ([self.l0_runs] + self.level_runs)
                             for r in lvl}
@@ -1016,21 +1201,57 @@ class Snapshot:
     def _check_degraded(self, u) -> None:
         hit = self.degraded_overlap(u)
         if hit:
-            raise RuntimeError(
+            # Runtime-only import: storage imports core at module load.
+            from ..storage.errors import CorruptionError
+            raise CorruptionError(
                 "query touches degraded vertex range(s) "
-                + ", ".join(f"[{r.lo}, {r.hi}] (fid {r.fid})" for r in hit))
+                + ", ".join(f"[{r.lo}, {r.hi}] (fid {r.fid})" for r in hit),
+                ranges=hit)
+
+    def _prefetch_range(self, lo: int, hi: int,
+                        queries: Optional[np.ndarray] = None) -> int:
+        """Kick background loads for every cold visible run whose vertex
+        range overlaps [lo, hi] — host metadata only, no device sync, so
+        disk I/O overlaps whatever the caller dispatches next.  When the
+        exact query vector is known, each run's presence filter gates the
+        schedule: a cold run that rejects EVERY query is provably untouched
+        by the resolve, so its disk load is skipped.  Returns the number of
+        loads scheduled."""
+        if hi < lo:
+            return 0
+        use_filters = queries is not None and _read_filters_enabled()
+        n = 0
+        pool = None
+        for rf in self.runs_by_fid.values():
+            if (rf.arrays is None and rf.nv > 0
+                    and rf.max_vid >= lo and rf.min_vid <= hi):
+                if (use_filters and rf.presence is not None
+                        and not rf.presence.might_contain(queries).any()):
+                    continue
+                if pool is None:
+                    pool = prefetch_pool()
+                n += rf.prefetch(pool)
+        return n
 
     def _resolve_batch_chunked(self, u: np.ndarray):
         if len(u) <= self._BATCH_CHUNK:
             return self._resolve_batch(u)
         # Uniform chunk padding: every chunk resolves at one query width.
         chunk_pad = csr.quantize_cap(self._BATCH_CHUNK, minimum=64)
+        chunks = [u[lo:lo + self._BATCH_CHUNK]
+                  for lo in range(0, len(u), self._BATCH_CHUNK)]
         offs_l, dst_l, prop_l = [np.zeros(1, np.int64)], [], []
         base = 0
-        for lo in range(0, len(u), self._BATCH_CHUNK):
-            # _prefetch_range of the next chunk: with the durability slice.
-            offs, dst, prop = self._resolve_batch(
-                u[lo:lo + self._BATCH_CHUNK], pad_to=chunk_pad)
+        for i, cu in enumerate(chunks):
+            if i + 1 < len(chunks) and not self.spine_ready():
+                # Double-buffer (legacy / pre-spine): chunk i+1's cold
+                # segments stream in while chunk i resolves.  Once the
+                # spine exists, chunks never touch segment arrays again.
+                nxt = chunks[i + 1]
+                self._prefetch_range(
+                    int(nxt[0]), int(nxt[-1]),
+                    queries=nxt if _READ_TOURNAMENT_MAX_K <= 0 else None)
+            offs, dst, prop = self._resolve_batch(cu, pad_to=chunk_pad)
             offs_l.append(offs[1:] + base)
             dst_l.append(dst)
             prop_l.append(prop)
@@ -1096,7 +1317,14 @@ class Snapshot:
         if bp < B:
             raise ValueError("pad_to below query count")
         dev = self.device
-        # _prefetch_range before the spine exists: with durability.
+        if B and not self.spine_ready():
+            # Pre-spine only: once the spine holds the merged records,
+            # evicted runs are never read again on this snapshot.  Filter
+            # gating applies only on the legacy path: the spine build
+            # merges every run regardless.
+            self._prefetch_range(
+                int(u[0]), int(u[-1]),
+                queries=u if _READ_TOURNAMENT_MAX_K <= 0 else None)
         u_pad = np.full(bp, INVALID_VID, np.int32)
         u_pad[:B] = u
         u_j = torch.from_numpy(u_pad).to(dev)

@@ -10,7 +10,9 @@ accounting) lives in plain dataclasses.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -86,9 +88,10 @@ class CSRRunArrays(NamedTuple):
 class RunFile:
     """Host wrapper: a CSR run plus the paper's file-header metadata.
 
-    The in-memory store keeps ``arrays`` resident; ``loader`` (a callable
-    that rematerializes evicted arrays from a segment file) stays None until
-    the port gains its durable storage engine."""
+    ``arrays`` may be None if evicted to disk; ``loader`` (set by the
+    durable storage engine, ``repro_torch.storage``) re-materializes them
+    from the run's segment file onto the store's device.  An in-memory
+    store keeps ``arrays`` resident and ``loader`` None."""
 
     fid: int
     level: int
@@ -102,21 +105,56 @@ class RunFile:
     loader: Optional[Callable[[], CSRRunArrays]] = dataclasses.field(
         default=None, repr=False)
     # Vertex-presence filter (core.filters.PresenceFilter) over this run's
-    # source-vertex set.  None = no filter: always "maybe".
+    # source-vertex set.  None = no filter: always "maybe".  It stays
+    # resident when the arrays are evicted: a cold run can still reject a
+    # query without touching disk.
     presence: Optional[object] = dataclasses.field(default=None, repr=False)
     # Store-level I/O counters (set by the owning store).
     io: Optional["IOCounters"] = dataclasses.field(default=None, repr=False)
+    # Orders load vs evict vs the compaction-commit re-materialize+unlink:
+    # without it a reader past its None-check could open an already-deleted
+    # segment file.
     _load_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False)
+    # Best-effort dedup of in-flight background loads; races are benign
+    # (ensure_loaded serializes the actual load on _load_lock).
+    _prefetching: bool = dataclasses.field(default=False, repr=False)
 
     @property
     def nbytes(self) -> int:
         return self.ne * (BYTES_PER_EDGE + BYTES_PER_PROP)
 
-    def ensure_loaded(self) -> CSRRunArrays:
-        """The run's arrays, loading them through ``loader`` when evicted.
-        Returns a local reference, so a concurrent evict cannot null it
-        between the check and the caller's use."""
+    # Cold-load instrumentation (slow path only).  A "hit" is a load that
+    # found the arrays already materialized by prefetch or a concurrent
+    # reader once under the lock; a "miss" pays the actual segment load.
+    _OBS_HIT = obs.counter("read_prefetch_hit_total")
+    _OBS_MISS = obs.counter("read_prefetch_miss_total")
+    _OBS_SCHED = obs.counter("read_prefetch_scheduled_total")
+    _OBS_LOAD = obs.histogram("storage_segment_load_seconds")
+    # Bytes materialized by cold segment loads, process-wide.
+    _OBS_COLD_BYTES = obs.counter("read_cold_load_bytes")
+
+    def ensure_loaded(self, _retry_counter: str = "read_retries"
+                      ) -> CSRRunArrays:
+        """Materialize ``arrays`` (no-op when resident).  Returns a local
+        reference, so a concurrent ``evict`` cannot null it between the
+        check and the caller's use.
+
+        The loader uploads with a synchronous copy on the calling thread's
+        current stream (every thread of the port keeps the device's
+        default stream), so the arrays are on the device before they are
+        published here and any later reader's kernels are ordered after
+        the copy.
+
+        Transient loader failures (duck-typed: the exception carries
+        ``transient = True``, e.g. an EIO on a cold segment read) are
+        retried with bounded exponential backoff + wall-clock deadline
+        (``LSMG_IO_RETRIES``, ``LSMG_IO_RETRY_BASE``,
+        ``LSMG_IO_RETRY_DEADLINE``); each retry bumps
+        ``io.<_retry_counter>``.  Corruption and other non-transient
+        errors propagate on the first attempt.  The retry lives HERE —
+        once, under the load lock — so foreground loads and background
+        prefetch cannot stack retries multiplicatively."""
         a = self.arrays
         if a is not None:
             return a
@@ -126,11 +164,79 @@ class RunFile:
                 if self.loader is None:
                     raise RuntimeError(
                         f"RunFile fid={self.fid} has no arrays and no loader")
-                a = self.loader()
+                self._OBS_MISS.inc()
+                self._OBS_COLD_BYTES.inc(self.nbytes)
                 if self.io is not None:
                     self.io.cold_load += self.nbytes
+                t0 = time.perf_counter()
+                a = self._load_with_retry(_retry_counter)
+                self._OBS_LOAD.observe(time.perf_counter() - t0)
                 self.arrays = a
+            else:
+                self._OBS_HIT.inc()
         return a
+
+    def _load_with_retry(self, counter_attr: str) -> CSRRunArrays:
+        attempts = int(os.environ.get("LSMG_IO_RETRIES", "3"))
+        base = float(os.environ.get("LSMG_IO_RETRY_BASE", "0.002"))
+        budget = float(os.environ.get("LSMG_IO_RETRY_DEADLINE", "2.0"))
+        deadline = time.monotonic() + budget
+        delay = base
+        attempt = 0
+        while True:
+            try:
+                return self.loader()
+            except Exception as e:
+                attempt += 1
+                if (not getattr(e, "transient", False)
+                        or attempt >= attempts
+                        or time.monotonic() + delay > deadline):
+                    raise
+                if self.io is not None:
+                    setattr(self.io, counter_attr,
+                            getattr(self.io, counter_attr) + 1)
+                time.sleep(delay)
+                delay = min(delay * 2, 0.1)
+
+    def prefetch(self, executor) -> bool:
+        """Async counterpart of ``ensure_loaded``: start materializing
+        ``arrays`` on ``executor`` if the run is cold.  The background load
+        serializes with foreground loads/evicts on ``_load_lock``, so a
+        concurrent ``ensure_loaded`` simply joins it.  Transient errors get
+        the same bounded retry as foreground loads (counted separately in
+        ``io.prefetch_retries``); a load that still fails leaves the run
+        cold, and the foreground ``ensure_loaded`` that needs the run then
+        loads it again and raises the error itself.
+        Returns True iff a load was scheduled."""
+        if self.arrays is not None or self.loader is None or self._prefetching:
+            return False
+        self._prefetching = True
+
+        def _load() -> None:
+            try:
+                self.ensure_loaded(_retry_counter="prefetch_retries")
+            except Exception:
+                pass  # the run stays cold: the foreground load raises it
+            finally:
+                self._prefetching = False
+
+        try:
+            executor.submit(_load)
+        except RuntimeError:      # pool shut down: foreground load covers it
+            self._prefetching = False
+            return False
+        self._OBS_SCHED.inc()
+        return True
+
+    def evict(self) -> bool:
+        """Drop the resident arrays (freeing their device memory) if a disk
+        copy exists.  Returns True if evicted.  A concurrently pinned
+        snapshot transparently reloads through ``ensure_loaded``."""
+        with self._load_lock:
+            if self.arrays is not None and self.loader is not None:
+                self.arrays = None
+                return True
+            return False
 
 
 class MemGraphState(NamedTuple):
@@ -264,6 +370,10 @@ class IOCounters:
             mirror[f.name] = c
         self.__dict__["_mirror"] = mirror
         return self
+
+    def durable_write(self) -> int:
+        """Actual bytes written to disk (WAL + segment files)."""
+        return self.wal_write + self.segment_write
 
     def as_dict(self) -> dict:
         return {f.name: getattr(self, f.name)

@@ -21,8 +21,12 @@ version where every partial sum is an exact float32 integer, and match
 within rtol 1e-5 / atol 1e-4 on real-valued x.  The merge-path
 permutation and the batched tournament round (keys and payload moved,
 never computed) must equal their plain versions exactly, and a store's
-spine built on the card must equal the CPU store's.  Every test skips
-where there is no card.
+spine built on the card must equal the CPU store's.  A durable store on
+the card must reload evicted runs from their segment files byte-equal to
+the tensors it evicted, read the same after a reopen, order a prefetched
+run's upload before a reader on another thread (20 times), and serve
+``ConcurrentLSMGraph`` snapshots equal to the oracle at each τ.  Every
+test skips where there is no card.
 """
 from types import SimpleNamespace
 
@@ -798,3 +802,176 @@ def test_cuda_store_spine_matches_cpu_store():
     assert card.total == cpu.total
     for i, (a, b) in enumerate(zip(card.cols, cpu.cols)):
         assert torch.equal(a.cpu(), b), i
+
+
+# ------------------------------------------------ durable and concurrent
+_DURABLE_CFG = dict(vmax=1 << 12, mem_edges=1 << 11, seg_size=4,
+                    n_segments=1 << 11, hash_slots=1 << 12, ovf_cap=1 << 12,
+                    batch_cap=256, l0_run_limit=2, seg_target_edges=256,
+                    level_factor=2, n_levels=5)
+
+
+def _unique_stream(seed, n):
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, 1 << 24, n))
+    rng.shuffle(key)
+    return (key >> 12), (key & 4095), rng.random(len(key)).astype(np.float32)
+
+
+def _lww(src, dst, upto, queries):
+    """Insert-only oracle: the adjacency of each query from the first
+    ``upto`` records."""
+    out = {int(q): [] for q in queries}
+    for s, d in zip(src[:upto].tolist(), dst[:upto].tolist()):
+        if s in out:
+            out[s].append(d)
+    return {q: np.array(sorted(v), np.int64) for q, v in out.items()}
+
+
+def _durable_store(tmp_path, dev, seed=21, n=20000):
+    from repro_torch.storage import open_store
+    g = open_store(str(tmp_path / "db"), StoreConfig(**_DURABLE_CFG),
+                   device=dev)
+    src, dst, prop = _unique_stream(seed, n)
+    for lo in range(0, len(src), 256):
+        g.insert_edges(src[lo:lo + 256], dst[lo:lo + 256],
+                       prop=prop[lo:lo + 256])
+    assert g.levels[0] and g.levels[1] and g.levels[2]
+    return g, src, dst
+
+
+@pytest.mark.cuda
+def test_cuda_durable_round_trip_and_cold_reload(tmp_path):
+    """A durable store on the card: every run evicted (its device memory
+    freed), reloaded cold from its segment file onto the card byte-equal
+    to the pre-evict tensors, reads equal before and after, and equal
+    after a close and reopen."""
+    dev = _card()
+    g, src, dst = _durable_store(tmp_path, dev)
+    vs = np.arange(0, 1 << 12, 3)
+    with g.snapshot() as snap:
+        want = snap.neighbors_batch(vs, return_props=True)
+    before = {rf.fid: rf.arrays for lvl in g.levels for rf in lvl}
+    assert all(a.dst.device == dev for a in before.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    assert g.durability.evict_all_segments() == len(before)
+    assert all(rf.arrays is None for lvl in g.levels for rf in lvl)
+    with g.snapshot() as snap:
+        got = snap.neighbors_batch(vs, return_props=True)
+    for (a, p), (b, q) in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(p, q)
+    for fid, a in before.items():
+        b = g.runs_by_fid[fid].arrays
+        assert b.dst.device == dev
+        nv, ne = int(a.nv), int(a.ne)
+        # A flush run is built at the edge count's capacity; a load
+        # re-quantizes capacities, so valid prefixes and pads are compared.
+        assert torch.equal(a.vkeys[:nv], b.vkeys[:nv]), fid
+        assert torch.equal(a.voff[:nv + 1], b.voff[:nv + 1]), fid
+        for f in ("dst", "ts", "marker", "prop"):
+            assert torch.equal(getattr(a, f)[:ne], getattr(b, f)[:ne]), f
+        assert bool((b.vkeys[nv:] == INVALID_VID).all())
+        if a.vcap == b.vcap and a.ecap == b.ecap:
+            for f in a._fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (fid, f)
+    del before
+    g.durability.evict_all_segments()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) < held
+    g.close()
+    from repro_torch.storage import open_store
+    g2 = open_store(str(tmp_path / "db"), device=dev)
+    with g2.snapshot() as snap:
+        got = snap.neighbors_batch(vs, return_props=True)
+    for (a, p), (b, q) in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(p, q)
+    g2.close()
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_then_read_on_another_thread(tmp_path):
+    """The upload of a prefetched run is ordered before its reader: the
+    read starts on another thread straight after ``_prefetch_range`` (the
+    loads still in flight on the pool), 20 times, and each time equals
+    the resident read, as do the reloaded run tensors."""
+    import threading
+    dev = _card()
+    g, src, dst = _durable_store(tmp_path, dev, seed=22)
+    vs = np.arange(0, 1 << 12, 5)
+    with g.snapshot() as snap:
+        want = snap.neighbors_batch(vs)
+    ref = {rf.fid: (rf.arrays.dst.cpu(), rf.arrays.prop.cpu())
+           for lvl in g.levels for rf in lvl}
+    for i in range(20):
+        g.durability.evict_all_segments()
+        out, errs = [], []
+        with g.snapshot() as snap:
+            assert snap._prefetch_range(0, 1 << 12) > 0
+
+            def read():
+                try:
+                    out.append(snap.neighbors_batch(vs))
+                    for fid, (d, p) in ref.items():
+                        a = snap.runs_by_fid[fid].ensure_loaded()
+                        assert torch.equal(a.dst.cpu(), d), fid
+                        assert torch.equal(a.prop.cpu(), p), fid
+                except BaseException as e:
+                    errs.append(e)
+            t = threading.Thread(target=read)
+            t.start()
+            t.join(timeout=120)
+        assert not t.is_alive() and not errs, (i, errs[:1])
+        for a, b in zip(want, out[0]):
+            np.testing.assert_array_equal(a, b)
+    g.close()
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_store_reads_equal_oracle(tmp_path):
+    """``ConcurrentLSMGraph`` over a durable store on the card: a writer
+    (the wrapper's thread) and a reader thread; every snapshot's read
+    equals the oracle of the records below its τ, and the store reopens
+    to the whole stream's oracle."""
+    import threading
+    from repro_torch.core.concurrent import ConcurrentLSMGraph
+    from repro_torch.storage import open_store
+    dev = _card()
+    g = ConcurrentLSMGraph(store=open_store(
+        str(tmp_path / "db"), StoreConfig(**_DURABLE_CFG), device=dev))
+    src, dst, prop = _unique_stream(23, 30000)
+    queries = np.unique(src[:300])[:64]
+    pins, errs = [], []
+    done = threading.Event()
+
+    def reader():
+        try:
+            while not done.is_set() or len(pins) < 3:
+                with g.snapshot() as snap:
+                    pins.append((snap.tau, snap.neighbors_batch(queries)))
+        except BaseException as e:
+            errs.append(e)
+
+    t = threading.Thread(target=reader)
+    t.start()
+    for lo in range(0, len(src), 256):
+        g.insert_edges(src[lo:lo + 256], dst[lo:lo + 256],
+                       prop=prop[lo:lo + 256])
+    g.flush()
+    done.set()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errs, errs[:1]
+    assert len(pins) >= 3
+    for tau, out in pins:
+        want = _lww(src, dst, tau, queries)
+        for q, a in zip(queries, out):
+            np.testing.assert_array_equal(a, want[int(q)], err_msg=str(tau))
+    g.close()
+    g2 = open_store(str(tmp_path / "db"), device=dev)
+    want = _lww(src, dst, len(src), queries)
+    with g2.snapshot() as snap:
+        for q, a in zip(queries, snap.neighbors_batch(queries)):
+            np.testing.assert_array_equal(a, want[int(q)])
+    g2.close()

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the port's kernel timing scripts in ``tools/``
-imports ``jax`` or anything of the JAX package ``repro``
+``chip_smoke.py`` and not the port's scripts in ``tools/`` (kernel timing,
+the lock lint) imports ``jax`` or anything of the JAX package ``repro``
 (checked on the source, so it holds whatever is installed)."""
 import ast
 from pathlib import Path
@@ -10,7 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "segment_bench.py",
-    ROOT / "tools" / "segment_variants.py", ROOT / "tools" / "probe_bench.py"]
+    ROOT / "tools" / "segment_variants.py", ROOT / "tools" / "probe_bench.py",
+    ROOT / "tools" / "lint_locks_torch.py"]
 
 
 def _imported_roots(path: Path):
@@ -29,6 +30,12 @@ def test_port_files_found():
     for name in ("segment_reduce", "lookup", "flash_attention"):
         assert (ROOT / "src" / "repro_torch" / "csrc" /
                 f"{name}.cu").exists()
+    for name in ("errors", "faultfs", "fsutil", "wal", "manifest",
+                 "segments", "scrub", "engine", "recovery", "chaostest",
+                 "crashtest", "__init__"):
+        assert (ROOT / "src" / "repro_torch" / "storage" /
+                f"{name}.py").exists()
+    assert (ROOT / "src" / "repro_torch" / "core" / "concurrent.py").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

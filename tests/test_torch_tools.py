@@ -58,3 +58,49 @@ def test_probe_bench_needs_a_card(tmp_path):
     none = str(tmp_path / "none.cu")
     assert probe_bench.main(["--parent-presence", none,
                              "--parent-lookup", none, "--o0"]) == 1
+
+
+# ------------------------------------------------------------ the lock lint
+import lint_locks_torch  # noqa: E402
+
+PORT_RULE1_BAD = """
+import torch
+
+class LSMGraph:
+    def commit(self):
+        with self._lock:
+            self._state = torch.zeros(4)  # device work under the commit lock
+"""
+
+PORT_RULE2_BAD = """
+class ConcurrentLSMGraph:
+    def snapshot(self):
+        with self.store._flush_lock:
+            return self.store.snapshot()
+"""
+
+
+def test_port_lock_lint_passes_on_the_port():
+    """The port's store and concurrent wrapper keep both rules, checked
+    with torch as device work (the CLI's default targets)."""
+    for path in lint_locks_torch.DEFAULT_TARGETS:
+        assert Path(path).exists()
+        assert lint_locks_torch.lint_source(Path(path).read_text(),
+                                            path) == []
+    assert lint_locks_torch.main([]) == 0
+
+
+@pytest.mark.parametrize("src,rule", [(PORT_RULE1_BAD, 1),
+                                      (PORT_RULE2_BAD, 2)])
+def test_port_lock_lint_catches_seeded_violations(src, rule):
+    got = lint_locks_torch.lint_source(src, "seeded.py")
+    assert [v.rule for v in got] == [rule]
+
+
+def test_reference_lock_lint_unchanged():
+    """Loading the port's lint leaves the JAX package's lint as it was:
+    torch is not device work there."""
+    import lint_locks
+    assert "torch" not in lint_locks.DEVICE_ROOTS
+    assert lint_locks.DEFAULT_TARGETS == ["src/repro/core/store.py"]
+    assert lint_locks.lint_source(PORT_RULE1_BAD, "seeded.py") == []
