@@ -80,11 +80,36 @@ line):
    ``scrub_once()`` finding nothing.  It prints the durable ingest rate
    beside phase 3's, the bytes written, the recovery, the cold read and
    the peak device memory.
-8. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last line
-   ``{"ok": true, "device": {...}}``.
+8. Sharded, durable, at the same scale: phase 3's stream and ``StoreConfig``
+   through ``open_sharded_store`` with 4 shards on the card
+   (``wal_sync="batch"``; each shard provisioned like the whole store, as
+   the service provisions it, so the MemGraph budget is 4x phase 3's), in
+   a fresh temporary directory (free disk checked first, removed at the
+   end), with a ``CompactionScheduler`` running: routed batches of phase
+   3's sizes and order, every 64th and the last acked, no final flush.
+   Then ``ShardedSnapshot.neighbors_batch`` of phase 3's queries with a
+   degraded report: equal to the oracle, the report clean,
+   ``presence_matrix`` launched, ``merge_pairs`` exactly once a round of
+   every shard's spine tournament summed over the shards (the pool's
+   threads launch them), ``merge_perm`` never; ``query_edges_batch`` of
+   65,536 pairs (half of them edges) equal to the oracle; every shard
+   "ok" in ``health_report()`` with its physical write amplification;
+   then ``close()``, ``open_sharded_store`` again (every shard recovers in
+   parallel, a WAL tail replayed) and the same read, equal again.
+9. The graph service on the card, in this process, at its own default
+   size (2,000 vertices, 30,000 edges): ``graph_service.main`` once
+   durable on one store with multi-level PageRank, a metrics report and a
+   trace, and once sharded (4 shards), durable, with the chaos phase and a
+   metrics report.  The chaos phase must restore the edge set; both
+   reports must have the schema and families ``tools/obs_smoke.py``
+   checks (shard and compaction too for the sharded one); the trace must
+   hold a span; run 1 must launch ``presence_matrix``, ``merge_pairs`` and
+   ``gather_segsum_runs``, run 2 ``presence_matrix`` and ``merge_pairs``.
+10. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
+    line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 7 and read just
-after each.  The port imports neither ``jax`` nor the JAX package; this
+The launch counters are zeroed just before phases 3 to 9 (each run of
+phase 9, and each read of phase 8) and read just after each.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
 """
@@ -374,7 +399,7 @@ def _spine_rounds(state):
     runs = sum(1 for lvl in state.levels for rf in lvl
                if rf.nv > 0 and rf.fid not in bad)
     handoff = state.mem_full is not None and int(state.mem_full.ne) != 0
-    return runs, (runs - 1).bit_length() + int(handoff and runs > 0)
+    return runs, max(runs - 1, 0).bit_length() + int(handoff and runs > 0)
 
 
 def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
@@ -1686,6 +1711,322 @@ def _durable_run(dev, cfg, stream, queries, oracle, seed, root, log):
                 allocated_gib={k: v / 2**30 for k, v in mem.items()})
 
 
+SHARDS = 4
+# The phase's batches acked: every ACK_EVERY-th and the last.
+ACK_EVERY = 64
+
+
+def sharded_path(dev, cfg, stream, queries, oracle, seed, smi="",
+                 log=print):
+    """Phase 3's stream through a durable sharded store on the card (one
+    directory a shard, a compaction scheduler running), read against the
+    oracle, membership, health, then a reopen and the read again.  The
+    store lives in a fresh temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    n_rec = int(stream["src"].shape[0])
+    root = tempfile.mkdtemp(prefix="lsmg-sharded-")
+    try:
+        free = shutil.disk_usage(root).free
+        need = n_rec * DURABLE_BYTES_PER_RECORD
+        log(f"disk: {free / 2**30:.2f} GiB free under {root}, the phase "
+            f"needs up to {need / 2**30:.2f} GiB")
+        if free < need:
+            raise AssertionError(
+                f"not enough disk for the sharded phase: {free} bytes "
+                f"free, {need} needed")
+        return _sharded_run(dev, cfg, stream, queries, oracle, seed, root,
+                            smi, log)
+    finally:
+        t0 = time.perf_counter()
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"sharded phase: directory removed in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def _shard_read(g, queries, oracle, what, smi, log):
+    """One sharded read of ``queries`` with its launch counts: equal to the
+    oracle with a clean degraded report, ``merge_pairs`` once a round of
+    every shard's spine tournament, no ``merge_perm``."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    cuda = g.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(g.device)
+        torch.cuda.reset_peak_memory_stats(g.device)
+    spine0 = {sh.obs_label: obs.REGISTRY.histogram(
+        "read_spine_build_seconds", store=sh.obs_label).sum
+        for sh in g.shards}
+    snap = g.snapshot()
+    try:
+        rounds = [_spine_rounds(s.state)[1] for s in snap.snaps]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out, rep = snap.neighbors_batch(queries, with_report=True)
+        t_read = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        snap.release()
+    peak = torch.cuda.max_memory_allocated(g.device) if cuda else 0
+    spine_ms = [(obs.REGISTRY.histogram(
+        "read_spine_build_seconds", store=sh.obs_label).sum
+        - spine0[sh.obs_label]) * 1e3 for sh in g.shards]
+    if not rep.ok:
+        raise AssertionError(f"{what}: degraded report {rep}")
+    t0 = time.perf_counter()
+    n_out = check_oracle(queries, out, oracle, what)
+    t_check = time.perf_counter() - t0
+    log(f"{what}: {len(queries)} queries ({n_out} edges) over "
+        f"{g.n_shards} shards equal to the oracle, report ok, in "
+        f"{t_read * 1e3:.1f} ms; spine builds by shard (ms) "
+        f"{[round(x, 1) for x in spine_ms]}; launches {counts}; spine "
+        f"rounds by shard {rounds}; peak device memory "
+        f"{peak / 2**30:.2f} GiB [{smi}]")
+    if cuda:   # a CPU rehearsal runs the plain versions: no launches
+        need_launches(counts, ("presence_matrix", "merge_pairs"), what)
+        if (counts["merge_pairs"], counts["merge_perm"]) != (sum(rounds),
+                                                             0):
+            raise AssertionError(
+                f"{what} launched merge_pairs {counts['merge_pairs']} times "
+                f"(want {sum(rounds)}: one a round of each shard's spine, "
+                f"{rounds}) and merge_perm {counts['merge_perm']} times "
+                f"(want 0)")
+    return dict(read_ms=t_read * 1e3, spine_ms=spine_ms, launches=counts,
+                spine_rounds=rounds, peak_gib=peak / 2**30,
+                oracle_check_s=t_check)
+
+
+def _membership_pairs(oracle, vmax, seed, n=1 << 16):
+    """``n`` (u, v) pairs, half of them live edges of the oracle, half drawn
+    at random, with their membership in the oracle."""
+    voff, odst, _prop = oracle
+    rng = np.random.default_rng(seed + 13)
+    e = rng.choice(odst.shape[0], n // 2, replace=False)
+    u = np.concatenate([np.searchsorted(voff, e, side="right") - 1,
+                        rng.integers(0, vmax, n - n // 2)]).astype(np.int64)
+    v = np.concatenate([odst[e],
+                        rng.integers(0, vmax, n - n // 2)]).astype(np.int64)
+    # The oracle is sorted by (src, dst): its keys are sorted already.
+    keys = (np.repeat(np.arange(vmax, dtype=np.int64), np.diff(voff)) << 32
+            ) | odst
+    q = (u << 32) | v
+    pos = np.minimum(np.searchsorted(keys, q), keys.shape[0] - 1)
+    return u, v, keys[pos] == q
+
+
+def _sharded_run(dev, cfg, stream, queries, oracle, seed, root, smi, log):
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.shard import CompactionScheduler, open_sharded_store
+    cuda = dev.type == "cuda"
+    src, dst, ins, prop = (stream[k] for k in ("src", "dst", "ins", "prop"))
+    n_rec = int(src.shape[0])
+    log(f"sharded: {SHARDS} shards, each provisioned like the whole store "
+        f"(scale_mem=False, as open_sharded_store and the service give "
+        f"it): aggregate MemGraph budget {SHARDS} x {cfg.mem_edges} = "
+        f"{SHARDS * cfg.mem_edges} edges, {SHARDS}x phase 3's")
+    g = open_sharded_store(root, cfg, device=dev, n_shards=SHARDS,
+                           wal_sync="batch")
+    sched = CompactionScheduler(g)
+    # The decision counters are process-wide: count this phase's ticks.
+    decided = {d: c.value for d, c in sched._obs_decision.items()}
+    sched.start()
+    acks = []
+    walls = {}   # the phase's other steps, host clock (s)
+    try:
+        t0 = time.perf_counter()
+        off = 0
+        n_batches = len(stream["sizes"])
+        for i, n in enumerate(stream["sizes"]):
+            sl = slice(off, off + n)
+            if ins[off]:
+                receipt = g.insert_edges(src[sl], dst[sl], prop[sl])
+            else:
+                receipt = g.delete_edges(src[sl], dst[sl])
+            off += n
+            if (i + 1) % ACK_EVERY == 0 or i + 1 == n_batches:
+                ta = time.perf_counter()
+                g.ack(receipt)
+                acks.append(time.perf_counter() - ta)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t_ingest = time.perf_counter() - t0
+    finally:
+        ts = time.perf_counter()
+        sched.stop()
+        walls["scheduler_stop"] = time.perf_counter() - ts
+    ticks = {d: c.value - decided[d]
+             for d, c in sched._obs_decision.items()}
+    ack_ms = np.array(acks) * 1e3
+    sizes = g.level_sizes()
+    runs = [[len(lvl) for lvl in sh.levels] for sh in g.shards]
+    tails = [sh.n_edges_cached() for sh in g.shards]
+    log(f"sharded ingest: {n_rec} records in {t_ingest:.1f} s = "
+        f"{n_rec / t_ingest:.0f} records/s routed into {SHARDS} shards "
+        f"(wal_sync=batch) [{smi}]")
+    log(f"sharded acks: {len(acks)} (every {ACK_EVERY}th batch and the "
+        f"last), wall (ms) sum {ack_ms.sum():.1f}, p50 "
+        f"{float(np.median(ack_ms)):.2f}, max {ack_ms.max():.2f} [{smi}]")
+    log(f"compaction scheduler decisions {ticks}; levels by shard: edges "
+        f"{sizes}, runs {runs}, active MemGraph {tails} [{smi}]")
+    # No final flush: every shard keeps its MemGraph tail; the scheduler
+    # may drain a shard's L0, so L0 and L1+ are held live store-wide.
+    live = [all(tails), any(r[0] for r in runs), any(sum(r[1:]) for r in runs)]
+    if not all(live):
+        raise AssertionError(f"MemGraph tails on every shard, L0 and L1+ "
+                             f"not all live: {live}; tails {tails}, runs "
+                             f"{runs}")
+
+    read = _shard_read(g, queries, oracle, "sharded read", smi, log)
+    ts = time.perf_counter()
+    u, v, want = _membership_pairs(oracle, cfg.vmax, seed)
+    walls["membership_oracle"] = time.perf_counter() - ts
+    t0 = time.perf_counter()
+    with g.snapshot() as snap:
+        got = snap.query_edges_batch(u, v)
+    t_member = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"query_edges_batch: {int((got != want).sum())} of {len(u)} "
+            f"pairs differ from the oracle")
+    log(f"membership: {len(u)} pairs ({int(want.sum())} edges) equal to "
+        f"the oracle in {t_member * 1e3:.1f} ms [{smi}]")
+    ts = time.perf_counter()
+    health = g.health_report()
+    walls["health_report"] = time.perf_counter() - ts
+    bad = {s: e for s, e in health.items()
+           if e["status"] != "ok" or e["amplification"]["write"] is None}
+    if bad:
+        raise AssertionError(f"health_report: {bad}")
+    amp = {s: e["amplification"] for s, e in health.items()}
+    log(f"health: every shard ok; amplification by shard {amp} [{smi}]")
+    disk = g.disk_bytes()
+    ts = time.perf_counter()
+    g.close()
+    del g
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    walls["close"] = time.perf_counter() - ts
+
+    t0 = time.perf_counter()
+    g = open_sharded_store(root, device=dev)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    t_recover = time.perf_counter() - t0
+    replayed = [sum(c.value for name in ("store_edges_inserted_total",
+                                         "store_edges_deleted_total")
+                    for c in obs.REGISTRY.find(name, store=sh.obs_label))
+                for sh in g.shards]
+    log(f"recovery: {SHARDS} shards in parallel in {t_recover:.1f} s; "
+        f"WAL records replayed by shard {replayed} (tails at close "
+        f"{tails}); levels by shard {g.level_sizes()} [{smi}]")
+    if not any(replayed):
+        raise AssertionError("no shard replayed a WAL tail")
+    again = _shard_read(g, queries, oracle, "sharded read after reopen",
+                        smi, log)
+    ts = time.perf_counter()
+    g.close()
+    walls["close_after_reopen"] = time.perf_counter() - ts
+    log("sharded phase, other steps (host clock, s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + f" [{smi}]")
+    return dict(walls_s=walls,records=n_rec, ingest_s=t_ingest,
+                records_per_s=n_rec / t_ingest, acks=len(acks),
+                ack_ms_p50=float(np.median(ack_ms)),
+                ack_ms_max=float(ack_ms.max()),
+                ack_ms_sum=float(ack_ms.sum()), scheduler=ticks,
+                level_sizes=sizes, runs=runs, mem_tails=tails,
+                read=read, membership_ms=t_member * 1e3,
+                disk_bytes=disk, recovery_s=t_recover,
+                wal_records_replayed=replayed, reopen_read=again)
+
+
+def _service(argv, log):
+    """``graph_service.main(argv)`` in this process, with its launches and
+    its printed lines (echoed)."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import graph_service
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        graph_service.main(argv)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  service: {line}")
+    return buf.getvalue(), counts, wall
+
+
+def _report_families(path, extra=()):
+    """The checks of ``tools/obs_smoke.py`` on a service metrics report."""
+    doc = json.loads(Path(path).read_text())
+    if doc.get("schema") != "lsmg-metrics-report-v1":
+        raise AssertionError(f"{path}: schema {doc.get('schema')!r}")
+    need = {"store", "read", "storage", "io", "merge", *extra}
+    fams = set()
+    for snap in doc["phases"].values():
+        fams |= set(snap["families"])
+    if not need <= fams:
+        raise AssertionError(f"{path}: families {sorted(fams)} lack "
+                             f"{sorted(need - fams)}")
+    return sorted(doc["phases"]), sorted(fams)
+
+
+def service_path(dev, smi="", log=print):
+    """Phase 9: the graph service on the card at its own default size,
+    once on one durable store and once sharded with the chaos phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    root = Path(tempfile.mkdtemp(prefix="lsmg-service-"))
+    try:
+        base = ["--device", str(dev)]
+        text1, c1, w1 = _service(
+            base + ["--durable", str(root / "d1"), "--analytics",
+                    "pagerank-multilevel", "--metrics", str(root / "m1.json"),
+                    "--trace", str(root / "t1.json")], log)
+        obs.REGISTRY.disable_tracing()
+        text2, c2, w2 = _service(
+            base + ["--shards", str(SHARDS), "--durable", str(root / "d2"),
+                    "--chaos", "--analytics", "2hop", "--metrics",
+                    str(root / "m2.json")], log)
+        if "edge set restored" not in text2:
+            raise AssertionError("the chaos phase did not restore the edge "
+                                 "set")
+        if "after restart: OK" not in text1 or \
+                "after restart: OK" not in text2:
+            raise AssertionError("a service run failed its restart check")
+        r1 = _report_families(root / "m1.json")
+        r2 = _report_families(root / "m2.json", ("shard", "compaction"))
+        trace = json.loads((root / "t1.json").read_text())
+        spans = sum(1 for e in trace["traceEvents"] if e["ph"] == "X")
+        if spans < 1:
+            raise AssertionError("the service trace holds no span")
+        if dev.type == "cuda":
+            need_launches(c1, ("presence_matrix", "merge_pairs",
+                               "gather_segsum_runs"), "service run 1")
+            need_launches(c2, ("presence_matrix", "merge_pairs"),
+                          "service run 2")
+        log(f"service run 1 (durable, pagerank-multilevel): {w1:.1f} s, "
+            f"launches {c1}, report phases {r1[0]}, families {r1[1]}, "
+            f"trace {spans} spans [{smi}]")
+        log(f"service run 2 (4 shards, durable, chaos, 2hop): {w2:.1f} s, "
+            f"launches {c2}, report phases {r2[0]}, families {r2[1]} "
+            f"[{smi}]")
+        return dict(run1=dict(wall_s=w1, launches=c1),
+                    run2=dict(wall_s=w2, launches=c2), trace_spans=spans)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -1856,6 +2197,33 @@ def main(argv=None) -> int:
           f"{stats['records'] / stats['ingest_s']:.0f} records/s in memory "
           f"(phase 3) [{smi}]")
     print(f"main path (durable): {json.dumps(dur)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    shd = sharded_path(dev, store_config(), stream, queries, oracle,
+                       args.seed, smi)
+    launches["sharded"] = shd["read"]["launches"]
+    print(f"main path (sharded) launches: {launches['sharded']}")
+    print(f"main path (sharded): ingest {shd['records_per_s']:.0f} "
+          f"records/s routed into {SHARDS} durable shards against "
+          f"{dur['records_per_s']:.0f} records/s durable (phase 7) and "
+          f"{stats['records'] / stats['ingest_s']:.0f} records/s in memory "
+          f"(phase 3); read {shd['read']['read_ms']:.1f} ms against "
+          f"{stats['spine_ms']:.1f} ms spine build in phase 3; recovery "
+          f"{shd['recovery_s']:.1f} s; disk {shd['disk_bytes']} B [{smi}]")
+    print(f"main path (sharded): {json.dumps(shd)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    svc = service_path(dev, smi)
+    launches["service"] = {"run1": svc["run1"]["launches"],
+                           "run2": svc["run2"]["launches"]}
+    print(f"main path (service) launches: {launches['service']}")
+    print(f"main path (service): {json.dumps(svc)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"

@@ -1472,10 +1472,14 @@ class Snapshot:
                 continue
             d, t, m, p, mask = mg_mod.scan_vertex(mg, v, cap=cap)
             recs.append(tuple(x[mask].cpu().numpy() for x in (d, t, m, p)))
+        # The reference reads the index row with XLA's gather, which clamps
+        # an index past either end; clamp the same way, so a vertex outside
+        # [0, vmax) reads as empty instead of raising.
+        iv = min(max(v, -self.cfg.vmax), self.cfg.vmax - 1)
         first_fid, min_fid = (int(x) for x in torch.stack(
-            [self.index.l0_first_fid[v], self.index.l0_min_fid[v]]).tolist())
-        lvl_fid = self.index.lvl_fid[v].cpu().numpy()
-        lvl_off = self.index.lvl_off[v].cpu().numpy()
+            [self.index.l0_first_fid[iv], self.index.l0_min_fid[iv]]).tolist())
+        lvl_fid = self.index.lvl_fid[iv].cpu().numpy()
+        lvl_off = self.index.lvl_off[iv].cpu().numpy()
         bytes_read = 0
         use_filters = _read_filters_enabled()
         store = self._store

@@ -1,4 +1,4 @@
 """Data generators for the port (numpy only)."""
-from .graphgen import rmat_edges, update_stream
+from .graphgen import powerlaw_edges, rmat_edges, update_stream
 
-__all__ = ["rmat_edges", "update_stream"]
+__all__ = ["powerlaw_edges", "rmat_edges", "update_stream"]

@@ -1,15 +1,35 @@
 """Graph generators for the port's smoke run and tests (numpy only).
 
-A copy of the two generators of the JAX package's ``repro.data.graphgen``
-that the store's main path uses: R-MAT with (0.57, 0.19, 0.19, 0.05) — the
-Graph500 Kernel 1 generator's skew — and the paper's 20:1 insert/delete
-update stream.  Same seeds give the same edges as the reference.
+A copy of the three generators of the JAX package's ``repro.data.graphgen``
+that the port uses: Zipf-weighted power-law edges (the graph service's
+stream), R-MAT with (0.57, 0.19, 0.19, 0.05) — the Graph500 Kernel 1
+generator's skew — and the paper's 20:1 insert/delete update stream.  Same
+seeds give the same edges as the reference, byte for byte.
 """
 from __future__ import annotations
 
 from typing import Iterator, Tuple
 
 import numpy as np
+
+
+def powerlaw_edges(n_vertices: int, n_edges: int, *, alpha: float = 1.2,
+                   seed: int = 0, unique: bool = True
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    # Zipf-weighted endpoints.
+    w = 1.0 / np.arange(1, n_vertices + 1) ** alpha
+    w /= w.sum()
+    m = int(n_edges * 1.3) if unique else n_edges
+    src = rng.choice(n_vertices, m, p=w).astype(np.int64)
+    dst = rng.choice(n_vertices, m, p=w).astype(np.int64)
+    if unique:
+        key = src * n_vertices + dst
+        _, idx = np.unique(key, return_index=True)
+        idx = np.sort(idx)[:n_edges]
+        src, dst = src[idx], dst[idx]
+    perm = rng.permutation(len(src))
+    return src[perm].astype(np.int32), dst[perm].astype(np.int32)
 
 
 def rmat_edges(scale: int, n_edges: int, *, seed: int = 0,

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_LAUNCH_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BOUND: Dict[str, Dict[str, object]] = {}
 #: ptxas register/shared-memory report of each build made by this process.
@@ -134,6 +135,17 @@ def run_on(dev, fn, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     with torch.cuda.device(dev):
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def count_launch(fn, path=None) -> None:
+    """Add one to the launch count of the kernel wrapper ``fn`` (and to
+    ``fn.path_launches[path]`` when a path is named), under one lock: the
+    sharded read launches from several pool threads at once, and a bare
+    ``+= 1`` there could lose a launch."""
+    with _LAUNCH_LOCK:
+        fn.launches += 1
+        if path is not None:
+            fn.path_launches[path] += 1
 
 
 def check(rc: int, name: str) -> None:

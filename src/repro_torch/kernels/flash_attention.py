@@ -124,8 +124,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, sq, skv,
                        d, _scale(d, scale), int(bool(causal)))
     _build.check(rc, f"flash_attention ({path})")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.path_launches[path] += 1
+    _build.count_launch(flash_attention_cuda, path)
     return out
 
 

@@ -109,7 +109,7 @@ def batched_searchsorted_cuda(keys: torch.Tensor, queries: torch.Tensor,
     rc = _build.run_on(dev, fn, keys.data_ptr(), queries.data_ptr(), n_ptr,
                        out.data_ptr(), queries.shape[0], cap)
     _build.check(rc, "batched_searchsorted")
-    batched_searchsorted_cuda.launches += 1
+    _build.count_launch(batched_searchsorted_cuda)
     return out
 
 
@@ -140,7 +140,7 @@ def batched_searchsorted_runs_cuda(keys: torch.Tensor, offs: torch.Tensor,
                        n_keys.data_ptr(), queries.data_ptr(), out.data_ptr(),
                        r, b, keys.shape[0])
     _build.check(rc, "batched_searchsorted_runs")
-    batched_searchsorted_runs_cuda.launches += 1
+    _build.count_launch(batched_searchsorted_runs_cuda)
     return out
 
 

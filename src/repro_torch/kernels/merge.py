@@ -163,7 +163,7 @@ def merge_perm_cuda(a_keys, b_keys, na: int, nb: int) -> torch.Tensor:
                        *(k.data_ptr() for k in b_keys), na, nb, acap, bcap,
                        split.data_ptr(), perm.data_ptr())
     _build.check(rc, "merge_perm")
-    merge_perm_cuda.launches += 1
+    _build.count_launch(merge_perm_cuda)
     return perm
 
 
@@ -297,7 +297,7 @@ def merge_pairs_cuda(cols, plan: MergePlan):
             tiles.data_ptr() + tile_at * tiles.element_size(), nt,
             split.data_ptr())
         _build.check(rc, "merge_pairs")
-        merge_pairs_cuda.launches += 1
+        _build.count_launch(merge_pairs_cuda)
         pair_at += rnd.pairs.shape[0]
         tile_at += nt
         cur, nxt = nxt, cur

@@ -96,7 +96,7 @@ def presence_matrix_cuda(words: torch.Tensor, offs: torch.Tensor,
                        masks.data_ptr(), queries.data_ptr(), out.data_ptr(),
                        r, b, FILTER_K, FILTER_SALT)
     _build.check(rc, "presence_matrix")
-    presence_matrix_cuda.launches += 1
+    _build.count_launch(presence_matrix_cuda)
     return out
 
 

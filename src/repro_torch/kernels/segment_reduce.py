@@ -102,7 +102,7 @@ def gather_segsum_cuda(dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     """Launch the segment-sum kernel of ``csrc/segment_reduce.cu`` on the
     current stream: float32[n_out]."""
     y = _launch("gather_segsum", dst, seg_id, wt, x, n_out)
-    gather_segsum_cuda.launches += 1
+    _build.count_launch(gather_segsum_cuda)
     return y
 
 
@@ -110,7 +110,7 @@ def gather_segmin_cuda(dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     """Launch the segment-min kernel of ``csrc/segment_reduce.cu`` on the
     current stream: float32[n_out]."""
     y = _launch("gather_segmin", dst, seg_id, wt, x, n_out)
-    gather_segmin_cuda.launches += 1
+    _build.count_launch(gather_segmin_cuda)
     return y
 
 
@@ -119,7 +119,7 @@ def gather_segsum_runs_cuda(dst, seg_id, wt, x, n_out: int) -> torch.Tensor:
     on the current stream, once over every run's records laid end to end:
     float32[n_out]."""
     y = _launch("gather_segsum_runs", dst, seg_id, wt, x, n_out)
-    gather_segsum_runs_cuda.launches += 1
+    _build.count_launch(gather_segsum_runs_cuda)
     return y
 
 

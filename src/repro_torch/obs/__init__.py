@@ -1,15 +1,121 @@
-"""repro_torch.obs — the port's metric registry.
+"""repro_torch.obs — the port's store-wide observability layer.
 
-The subset of the JAX package's ``repro.obs`` that the store uses:
-counters, gauges, log-scale histograms, spans and the trace ring, on one
-process-wide ``REGISTRY`` of the port's own.  Metric names and the naming
-rules (``<layer>_<what>[_<unit>]``, bounded label cardinality) are the
+A copy of the JAX package's ``repro.obs`` on a process-wide ``REGISTRY`` of
+the port's own, so a process that runs both packages never counts one
+package's events under the other's series.  Metric names, the naming
+rules, the JSON and Prometheus schemas and the trace format are the
 reference's, so a dashboard reads either package the same way.
-"""
-from .registry import Counter, Gauge, Histogram, MetricRegistry, Span
 
-#: The process-wide default registry every port call site uses.
+One process-wide ``MetricRegistry`` (``REGISTRY``) holds every counter,
+gauge, and latency histogram in the system; ``span(...)`` times scopes
+into duration histograms and, when tracing is enabled, a bounded
+in-memory trace ring.  ``export_json``/``export_prometheus`` snapshot the
+whole registry; ``Reporter`` does so periodically.  The compaction
+scheduler and the graph service read from here rather than growing
+their own ad-hoc state.
+
+Observability model
+===================
+
+**Naming.** ``<layer>_<what>[_<unit>]``, lower_snake_case.  The first
+token is the owning layer and becomes the family in the hierarchical
+JSON export.  Counters of discrete events end in ``_total``; byte
+counters in ``_bytes``; duration histograms in ``_seconds`` (``span``
+appends it automatically); unit-less gauges (depths, 0/1 flags) carry no
+unit suffix.
+
+**Layer ownership.**  A metric is registered and written by exactly one
+layer — readers go through the exporter, never by reaching into another
+layer's instruments:
+
+* ``store_*``  — core/store.py + core/concurrent.py: apply/flush/
+  compaction spans, ``store_state_publish_total``, ``store_l0_depth`` and
+  ``store_level_runs`` gauges, background-thread error counts.
+* ``storage_*`` — storage/wal.py + storage/engine.py: WAL append/fsync
+  latency, group-commit batch size, segment write/load/evict, scrubber
+  verdicts, quarantine counts.
+* ``shard_*``  — shard/store.py: per-shard fencing state, ack latency,
+  degraded-range count, routed-batch fan-out.
+* ``read_*``   — the read path (core/store.py resolve + core/types.py
+  prefetch): resolve batch latency, prefetch hit/miss, and the presence-
+  filter counters — ``read_filter_checked_total`` ((run, query) pairs
+  tested against a run's vertex-presence filter),
+  ``read_filter_skipped_total`` (pairs the filter proved absent — device
+  work and, on the per-run paths, cold segment loads avoided),
+  ``read_filter_false_positive_total`` (filter said "maybe", the gather
+  found nothing; observable on the scalar path only).  All three carry
+  ``store=``; skipped/checked is the filter's live selectivity, and
+  false-positive/checked calibrates the bits-per-key budget.
+* ``compaction_*`` — shard/scheduler.py: the amplification-driven
+  scheduler's decision stream.  ``compaction_sched_decision_total``
+  (``decision=`` ``compact`` | ``skip_hot`` | ``skip_backoff`` | ``idle``
+  — a closed enum), ``compaction_sched_compactions_total`` (``shard=``),
+  and the ``compaction_sched_interval_seconds`` gauge tracking the
+  backoff-widened tick.  Written only by the scheduler thread.
+* ``io_*``     — the ``IOCounters`` mirror (core/types.py): byte counters
+  kept byte-compatible with the legacy dataclass API.
+* ``merge_*``  — the ``MERGE_STATS`` view (kernels/merge.py): kernel-vs-
+  host merge branch counts, spine build/splice/reuse.
+* ``amp_*``    — derived amplification gauges (obs/amplification.py):
+  written ONLY by ``AmplificationLedger.refresh_gauges`` — never by a
+  hot path.
+
+**Derived metrics (amplification).**  ``obs/amplification.py`` turns raw
+counters into the paper's evaluation ratios: write amplification
+(physical WAL + segment + manifest bytes ÷ ``store_logical_ingest_bytes``,
+overall and per level via ``storage_level_write_bytes``; in-memory
+stores use the flush/compaction/index logical proxy), read amplification
+(``io_analytics_read_bytes`` touched ÷ ``read_returned_bytes``, plus
+``read_runs_probed_total``/``read_queries_total`` runs-per-query), and
+space amplification (``disk_bytes()`` ÷ live edge bytes).  Rules for
+ratio gauges: family ``amp``, suffix ``_ratio`` (the one sanctioned
+unit-less suffix — a ratio IS the unit), runs-per-query gauges carry no
+suffix; values are REFRESHED from counters (``refresh_gauges``, hooked
+into ``Reporter``), never incremented; an empty-denominator series is
+REMOVED (``MetricRegistry.remove``), not set to 0 — "no data" must not
+export as "no amplification".  The JSON report form is schema
+``lsmg-amp-v1`` (``AmplificationLedger.report``).
+
+**Dead series.**  A gauge whose subject disappears (a level emptied by a
+full compaction, a ratio losing its denominator) is removed via
+``MetricRegistry.remove`` at the owning commit point, so exporters stop
+reporting it; stale last values never outlive their subject.
+
+**Trace export.**  With tracing enabled (``REGISTRY.enable_tracing``),
+spans land in the bounded ring together with point lifecycle events
+(``trace_instant``: flush rotate/commit, compaction commit, WAL rotate,
+quarantine, rebuild, shard fence).  ``obs/trace_export.py`` converts the
+ring to Chrome trace-event / Perfetto JSON (spans → ``ph:"X"`` duration
+events per thread, instants → ``ph:"i"`` markers, families → ``cat``,
+failed spans carry ``args.ok: false``); ``graph_service --trace FILE``
+writes it at exit.
+
+**Label cardinality.**  Labels multiply series; every label must be
+bounded by configuration, never by data.  Allowed: store ordinal
+(``store="s0"``), shard index (``shard="3"``), level (``level="1"``),
+small closed enums (``verdict="healed"``).  Forbidden: vertex ids, seq
+numbers, file ids, timestamps — anything that grows with the workload
+belongs in a histogram observation or a trace event, not a label.
+
+**Cost.**  Instruments are cached at call sites (module- or
+instance-level attributes), so hot paths pay one lock + one add — never
+a registry map lookup.  The span hot path pays two ``perf_counter``
+calls and one histogram observe; the trace ring adds exactly one
+attribute check while disabled.  ``tests/test_torch_obs.py`` enforces
+the per-op bound and the < 2% ingest overhead budget.
+"""
+from .registry import (Counter, Gauge, Histogram, MetricRegistry, Span)
+from .export import SCHEMA, Reporter, export_json, export_prometheus
+
+#: The process-wide default registry every production call site uses.
 REGISTRY = MetricRegistry()
+
+# Derived layers import lazily-resolved REGISTRY, so they must come after
+# its definition.
+from .amplification import (AMP_SCHEMA, AmplificationLedger,  # noqa: E402
+                            shard_amplification)
+from .trace_export import (export_chrome_trace,               # noqa: E402
+                           to_chrome_trace)
 
 
 def counter(name: str, **labels) -> Counter:
@@ -28,5 +134,10 @@ def span(name: str, **labels) -> Span:
     return REGISTRY.span(name, **labels)
 
 
-__all__ = ["REGISTRY", "MetricRegistry", "Counter", "Gauge", "Histogram",
-           "Span", "counter", "gauge", "histogram", "span"]
+__all__ = [
+    "REGISTRY", "SCHEMA", "AMP_SCHEMA", "MetricRegistry", "Counter",
+    "Gauge", "Histogram", "Span", "Reporter", "AmplificationLedger",
+    "export_json", "export_prometheus", "export_chrome_trace",
+    "to_chrome_trace", "shard_amplification",
+    "counter", "gauge", "histogram", "span",
+]

@@ -166,9 +166,9 @@ answer, never an unbounded retry:
   Queries overlapping a still-degraded range raise ``CorruptionError``;
   everything else keeps serving (``on_corruption="degrade"``, the default
   — ``"raise"`` fails the open instead).
-* **Lost durability at the shard tier** (the JAX package's ``shard``
-  layer; not yet in the port): a shard's latched/corrupt state maps to
-  per-shard fencing, and a reopen of that shard's directory heals it.
+* **Lost durability at the shard tier** (``repro_torch.shard``): a
+  shard's latched/corrupt state maps to per-shard fencing, and a reopen of
+  that shard's directory (``ShardedGraphStore.reopen_shard``) heals it.
 
 ``faultfs`` is the injection seam for all of the above; the invariants are
 enforced by ``chaostest.run_schedule`` (randomized schedules: acked writes

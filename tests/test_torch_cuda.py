@@ -25,8 +25,11 @@ spine built on the card must equal the CPU store's.  A durable store on
 the card must reload evicted runs from their segment files byte-equal to
 the tensors it evicted, read the same after a reopen, order a prefetched
 run's upload before a reader on another thread (20 times), and serve
-``ConcurrentLSMGraph`` snapshots equal to the oracle at each τ.  Every
-test skips where there is no card.
+``ConcurrentLSMGraph`` snapshots equal to the oracle at each τ.  Four
+durable shards on the card must read equal to the oracle at each sharded
+snapshot's per-shard τs, launch ``merge_pairs`` exactly once a round of
+every shard's spine across the pool's threads, and reopen onto the card.
+Every test skips where there is no card.
 """
 from types import SimpleNamespace
 
@@ -975,3 +978,98 @@ def test_cuda_concurrent_store_reads_equal_oracle(tmp_path):
         for q, a in zip(queries, snap.neighbors_batch(queries)):
             np.testing.assert_array_equal(a, want[int(q)])
     g2.close()
+
+
+def _spine_rounds(state):
+    """Rounds of a state's spine tournament: one ``merge_pairs`` a halving
+    of its sealed runs, and one more when a sealed MemGraph rides it."""
+    runs = sum(1 for lvl in state.levels for rf in lvl if rf.nv > 0)
+    handoff = state.mem_full is not None and int(state.mem_full.ne) != 0
+    return max(runs - 1, 0).bit_length() + int(handoff and runs > 0)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_store_reads_equal_oracle(tmp_path):
+    """Four durable shards on the card behind ``open_sharded_store``: a
+    reader thread pins sharded snapshots during a routed ingest, and each
+    read equals the oracle at the snapshot's per-shard τs.  After a reopen
+    with every run evicted (the read's prefetch kicks each shard's loads
+    before the pool resolves it), one read launches ``merge_pairs``
+    exactly once a round of every shard's spine, counted across the pool's
+    threads, and never ``merge_perm``; then ``reopen_shard`` recovers each
+    shard onto the card, and each cold read stays equal."""
+    import threading
+    from repro_torch.shard import open_sharded_store
+    dev = _card()
+    root = str(tmp_path / "sh")
+    g = open_sharded_store(root, StoreConfig(**_DURABLE_CFG), device=dev,
+                           n_shards=4)
+    assert all(sh.device == dev for sh in g.shards)
+    src, dst, prop = _unique_stream(24, 30000)
+    owner = g.part.owner_of(src)
+    queries = np.concatenate([np.unique(src[owner == s])[:24]
+                              for s in range(4)])
+    by_shard = [np.flatnonzero(owner == s) for s in range(4)]
+    pins, errs = [], []
+    done = threading.Event()
+
+    def reader():
+        try:
+            while not done.is_set() or len(pins) < 3:
+                with g.snapshot() as snap:
+                    pins.append((snap.taus, snap.neighbors_batch(queries)))
+        except BaseException as e:
+            errs.append(e)
+
+    def want_at(taus):
+        """Per shard, the adjacency of its queries from the first τ records
+        routed to it (an insert-only stream)."""
+        out = {}
+        for s, tau in enumerate(taus):
+            idx = by_shard[s][:tau]
+            out.update(_lww(src[idx], dst[idx], len(idx),
+                            queries[g.part.owner_of(queries) == s]))
+        return out
+
+    t = threading.Thread(target=reader)
+    t.start()
+    receipt = None
+    for lo in range(0, len(src), 256):
+        receipt = g.insert_edges(src[lo:lo + 256], dst[lo:lo + 256],
+                                 prop[lo:lo + 256])
+    g.ack(receipt)
+    done.set()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errs, errs[:1]
+    assert len(pins) >= 3
+    for taus, out in pins:
+        want = want_at(taus)
+        for q, a in zip(queries, out):
+            np.testing.assert_array_equal(a, want[int(q)], err_msg=str(taus))
+    g.close()
+
+    final = want_at([len(ix) for ix in by_shard])
+    g = open_sharded_store(root, device=dev)
+    for sh in g.shards:
+        sh.durability.evict_all_segments()
+    rounds = [_spine_rounds(sh._state) for sh in g.shards]
+    assert sum(rounds) > 0
+    ops.reset_launches()
+    with g.snapshot() as snap:
+        out, rep = snap.neighbors_batch(queries, with_report=True)
+    counts = ops.launch_counts()
+    assert rep.ok
+    assert counts["presence_matrix"] > 0
+    assert (counts["merge_pairs"], counts["merge_perm"]) == (sum(rounds), 0)
+    for q, a in zip(queries, out):
+        np.testing.assert_array_equal(a, final[int(q)])
+    for s in range(4):
+        g.reopen_shard(s)
+        assert g.shards[s].device == dev
+        for sh in g.shards:
+            sh.durability.evict_all_segments()
+        with g.snapshot() as snap:
+            out = snap.neighbors_batch(queries)
+        for q, a in zip(queries, out):
+            np.testing.assert_array_equal(a, final[int(q)], err_msg=str(s))
+    g.close()

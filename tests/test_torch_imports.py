@@ -36,6 +36,38 @@ def test_port_files_found():
         assert (ROOT / "src" / "repro_torch" / "storage" /
                 f"{name}.py").exists()
     assert (ROOT / "src" / "repro_torch" / "core" / "concurrent.py").exists()
+    for rel in ("shard/__init__.py", "shard/partition.py", "shard/router.py",
+                "shard/store.py", "shard/scheduler.py", "launch/__init__.py",
+                "launch/graph_service.py", "obs/amplification.py",
+                "obs/export.py", "obs/trace_export.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+
+
+def test_port_modules_import_without_jax():
+    """The shard layer, the service and the observability modules import
+    in a fresh interpreter in which ``jax`` and ``repro`` cannot be
+    imported at all."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import repro_torch.shard, repro_torch.launch.graph_service\n"
+        "import repro_torch.obs.amplification, repro_torch.obs.export\n"
+        "import repro_torch.obs.trace_export\n"
+        "from repro_torch.shard import open_sharded_store\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

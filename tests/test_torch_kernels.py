@@ -333,6 +333,41 @@ def test_launch_counters_ignore_plain_calls():
                                    "flash_attention": 0}
 
 
+def test_launch_count_is_atomic_across_threads():
+    """Every wrapper counts its launch through ``_build.count_launch``, one
+    increment under one lock: 8 threads counting 10,000 launches each of
+    one kernel (as the sharded read's pool threads launch ``merge_pairs``
+    and ``presence_matrix`` at once) lose none."""
+    import threading
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash
+    ops.reset_launches()
+    paths0 = dict(flash.flash_attention_cuda.path_launches)
+    barrier = threading.Barrier(8)
+
+    def work():
+        barrier.wait()
+        for _ in range(10_000):
+            _build.count_launch(ops.KERNELS["merge_pairs"])
+            _build.count_launch(flash.flash_attention_cuda, "tensor_cores")
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    counts = ops.launch_counts()
+    assert counts["merge_pairs"] == 80_000
+    assert counts["flash_attention"] == 80_000
+    assert flash.flash_attention_cuda.path_launches["tensor_cores"] == \
+        paths0["tensor_cores"] + 80_000
+    flash.flash_attention_cuda.path_launches.update(paths0)
+    ops.reset_launches()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 # ------------------------------------------------------------------- lookup
 def _padded_keys(rng, n, cap=1024):
     keys = np.full(cap, I32MAX, np.int32)

@@ -80,9 +80,49 @@ class ConcurrentLSMGraph:
 """
 
 
+SHARD_EPOCH_BAD = """
+import torch
+
+class ShardedGraphStore:
+    def _apply_routed(self):
+        with self._epoch_lock:
+            self._epoch += 1
+            self.buf = torch.empty(4)     # device work under the epoch lock
+"""
+
+SHARD_HEALTH_BAD = """
+class ShardedGraphStore:
+    def fence(self, s):
+        with self._health_lock:
+            torch.cuda.synchronize()      # device wait under the health lock
+"""
+
+SHARD_READ_BAD = """
+class ShardedSnapshot:
+    def neighbors_batch(self, vs):
+        with self._owner._epoch_lock:     # a sharded read takes the epoch lock
+            return self.snaps[0].neighbors_batch(vs)
+"""
+
+
+@pytest.mark.parametrize("src,rule", [(SHARD_EPOCH_BAD, 1),
+                                      (SHARD_HEALTH_BAD, 1),
+                                      (SHARD_READ_BAD, 2)])
+def test_port_lock_lint_covers_the_sharded_store(src, rule):
+    """The sharded store and its scheduler are default targets, and the
+    lint holds their lock bodies: no device call under the epoch or health
+    lock, no epoch lock on the sharded read path."""
+    names = [Path(p).name for p in lint_locks_torch.DEFAULT_TARGETS]
+    assert Path(lint_locks_torch.DEFAULT_TARGETS[2]).parent.name == "shard"
+    assert names[2:] == ["store.py", "scheduler.py"]
+    got = lint_locks_torch.lint_source(src, "seeded.py")
+    assert [v.rule for v in got] == [rule]
+
+
 def test_port_lock_lint_passes_on_the_port():
-    """The port's store and concurrent wrapper keep both rules, checked
-    with torch as device work (the CLI's default targets)."""
+    """The port's store, concurrent wrapper, sharded store and scheduler
+    keep both rules, checked with torch as device work (the CLI's default
+    targets)."""
     for path in lint_locks_torch.DEFAULT_TARGETS:
         assert Path(path).exists()
         assert lint_locks_torch.lint_source(Path(path).read_text(),

@@ -2,14 +2,19 @@
 """AST lint of the PyTorch port's lock discipline.
 
 The two rules of ``tools/lint_locks.py`` (no device work under the commit
-lock; the read path takes no writer lock), applied to the port's store and
-its concurrent wrapper.  Device work in the port is a call through
-``torch`` or through the port's own device-work aliases, so those roots are
-added to the JAX package's ``DEVICE_ROOTS``; the port's extra spine
-helpers, the prefetch pool and the wrapper's ``snapshot`` join the read
-path.  ``tools/lint_locks.py`` itself, its targets and its rules for the
-JAX package stay as they are: this script loads its own copy of that
-module and widens the copy's sets.
+lock; the read path takes no writer lock), applied to the port's store, its
+concurrent wrapper, and its sharded store and compaction scheduler.  Device
+work in the port is a call through ``torch`` or through the port's own
+device-work aliases, so those roots are added to the JAX package's
+``DEVICE_ROOTS``; the port's extra spine helpers, the prefetch pool and the
+wrapper's ``snapshot`` join the read path.  In the sharded store, rule 1
+also covers the coordinator's epoch and health locks (no device call in
+their bodies: the epoch lock is held across the fan-out of per-shard
+applies by design, the tau-epoch protocol, and those run in the shards' own
+code on pool threads), and rule 2 the ``ShardedSnapshot`` (a sharded read
+never touches the epoch lock).  ``tools/lint_locks.py`` itself, its targets
+and its rules for the JAX package stay as they are: this script loads its
+own copy of that module and widens the copy's sets.
 
     python tools/lint_locks_torch.py [files...]
 
@@ -40,12 +45,28 @@ PORT_READ_PATH_METHODS = {("ConcurrentLSMGraph", "snapshot"),
                           ("LSMGraph", "query_edge"),
                           ("LSMGraph", "query_edges_batch")}
 
+# Locks whose bodies may hold no device call (rule 1): the store's commit
+# lock, and the sharded store's epoch and health locks.
+PORT_COMMIT_LOCKS = {"_lock", "_epoch_lock", "_health_lock"}
+
+
+def _is_commit_lock(expr) -> bool:
+    return (isinstance(expr, base.ast.Attribute)
+            and expr.attr in PORT_COMMIT_LOCKS
+            and isinstance(expr.value, base.ast.Name)
+            and expr.value.id == "self")
+
+
+base._is_self_lock = _is_commit_lock
 base.DEVICE_ROOTS = base.DEVICE_ROOTS | PORT_DEVICE_ROOTS
+base.WRITER_LOCKS = base.WRITER_LOCKS | {"_epoch_lock"}
+base.READ_PATH_CLASSES = base.READ_PATH_CLASSES | {"ShardedSnapshot"}
 base.READ_PATH_FUNCS = base.READ_PATH_FUNCS | PORT_READ_PATH_FUNCS
 base.READ_PATH_METHODS = base.READ_PATH_METHODS | PORT_READ_PATH_METHODS
+_PORT = REPO / "src" / "repro_torch"
 base.DEFAULT_TARGETS = [
-    str(REPO / "src" / "repro_torch" / "core" / "store.py"),
-    str(REPO / "src" / "repro_torch" / "core" / "concurrent.py")]
+    str(_PORT / "core" / "store.py"), str(_PORT / "core" / "concurrent.py"),
+    str(_PORT / "shard" / "store.py"), str(_PORT / "shard" / "scheduler.py")]
 
 DEFAULT_TARGETS = base.DEFAULT_TARGETS
 lint_source = base.lint_source
