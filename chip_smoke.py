@@ -105,11 +105,27 @@ line):
    checks (shard and compaction too for the sharded one); the trace must
    hold a span; run 1 must launch ``presence_matrix``, ``merge_pairs`` and
    ``gather_segsum_runs``, run 2 ``presence_matrix`` and ``merge_pairs``.
-10. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
+10. The paper's benchmark harness on the card, in this process:
+    every suite of ``repro_torch.benchmarks.run.suites()`` (Figs 10 to 18,
+    the kernels, batched reads, presence filters, durability and sharded
+    scaling), each with its stores on the card beside the four baseline
+    systems on the host, at the reference's paper-shaped scale
+    (``BENCH_SCALE=large``: 2,000 vertices and 300,000 power-law edges
+    asked, of which the generator keeps the distinct ones; the sharded
+    suite 8,000 vertices, 960,000 edges).  Every row is printed with the
+    card's name and power limit, and each suite's kernel launches.  A
+    suite that raises fails the phase; every row must keep the harness's
+    schema, ``sharded_oracle_concurrent`` must read ``identical=True``, the
+    kernel rows must name ``route=cuda``, and across the suites
+    ``presence_matrix``, ``merge_pairs``, ``gather_segsum``,
+    ``gather_segmin`` and ``flash_attention`` must each launch.  Where
+    ``batched_searchsorted`` does not launch, the phase says why.
+11. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 9 (each run of
-phase 9, and each read of phase 8) and read just after each.  The port imports neither ``jax`` nor the JAX package; this
+The launch counters are zeroed just before phases 3 to 10 (each run of
+phase 9, each read of phase 8 and each suite of phase 10) and read just
+after each.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
 """
@@ -2027,6 +2043,186 @@ def service_path(dev, smi="", log=print):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 10
+# Kernels the benchmark suites must launch between them.
+BENCH_KERNELS = ("presence_matrix", "merge_pairs", "gather_segsum",
+                 "gather_segmin", "flash_attention")
+
+
+def _bench_agree(name, kind, got, want, worst):
+    """Hold one of phase 10's outputs (a tensor, or SCAN's pair) against
+    its plain counterpart, with the tolerance of its ``kind`` (see
+    ``check_bench_outputs``); ``worst[kind]`` keeps the largest error seen
+    (relative L1 for PageRank, else the largest absolute error) and its
+    output's name."""
+    import torch
+    if kind == "scan":                 # (degree, weight sum)
+        _bench_agree(name, "degree", got[0], want[0], worst)
+        _bench_agree(name, "wsum", got[1], want[1], worst)
+        return
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    if got.shape != want.shape or got.dtype != want.dtype:
+        ok, how = False, "shape or dtype"
+    elif kind in ("sssp", "bfs", "cc", "degree"):
+        ok, how = torch.equal(_pos_zero(got), _pos_zero(want)), "equal"
+    elif kind == "pagerank":
+        err = float((got.double() - want.double()).abs().sum()
+                    / want.double().abs().sum().clamp_min(1e-300))
+        ok, how = err <= PR_REL_L1, f"relative L1 {err:.3e} <= {PR_REL_L1}"
+    elif kind == "wsum":
+        ok = torch.allclose(got, want, rtol=WSUM_RTOL, atol=0.0)
+        how = f"rtol {WSUM_RTOL}"
+    elif kind == "segsum":
+        ok = torch.allclose(got, want, rtol=SEG_RTOL, atol=SEG_ATOL)
+        how = f"rtol {SEG_RTOL} / atol {SEG_ATOL}"
+    else:                              # "attention", float32
+        ok = torch.allclose(got, want, **ATT_F32_TOL)
+        how = f"rtol {ATT_F32_TOL['rtol']} / atol {ATT_F32_TOL['atol']}"
+    if not ok:
+        raise AssertionError(f"phase 10: {name} ({kind}) differs from its "
+                             f"plain version ({how}; error {err:.3e})")
+    if kind not in worst or err > worst[kind][0]:
+        worst[kind] = (err, name)
+
+
+def check_bench_outputs(dev, log=print):
+    """Phase 10's outputs held against plain versions at the suites' own
+    shapes and scale (launches here do not count):
+
+    - ``bench_kernels``' inputs: ``gather_segsum`` within tests/
+      test_kernels.py's rtol 1e-5 / atol 1e-4, float32 attention within its
+      rtol 1e-3 / atol 2e-3;
+    - Fig 12 (``bench_analytics``' ingest, every system's view): SSSP, BFS
+      and CC through the kernels equal to the same algorithm through the
+      plain versions (a min is exact in any order), SCAN's degrees equal
+      (integer sums) and its weight sums within rtol 1e-4, PageRank within
+      relative L1 1e-4 (phase 4's float32 budgets);
+    - the LSMGraph's ``materialize_csr`` (presence_matrix and merge_pairs
+      at the suite's shapes) equal, offsets, neighbours and properties, to
+      the in-place CSR baseline's numpy CSR of the same stream."""
+    import numpy as np
+    from repro_torch.analytics import materialize_csr
+    from repro_torch.benchmarks import bench_analytics, bench_kernels
+    from repro_torch.benchmarks.common import scale
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import mha_ref
+    from repro_torch.kernels.segment_reduce import gather_segsum_ref
+    worst = {}
+    t0 = time.perf_counter()
+    with _uncounted():
+        z = bench_kernels.inputs(dev)
+        _bench_agree("kernel_segsum", "segsum",
+                     ops.gather_segsum(z.dst, z.seg, z.wt, z.x, n_out=z.v),
+                     gather_segsum_ref(z.dst, z.seg, z.wt, z.x, z.v), worst)
+        _bench_agree("kernel_attn", "attention",
+                     ops.attention(z.q, z.k, z.vv, use_pallas=True),
+                     mha_ref(z.q, z.k, z.vv), worst)
+
+        V = scale().V
+        systems, source = bench_analytics.ingest(dev)
+        kern = bench_analytics.algorithms(source)
+        plain = bench_analytics.algorithms(source, use_pallas=False)
+        for name, sys_ in systems.items():
+            snap = None
+            if name == "lsmgraph":
+                snap = sys_.snapshot()
+                view = materialize_csr(snap, V)
+                voff, dst, prop = systems["csr_inplace"].snapshot_csr(
+                    charge_read=False)
+                n = int(voff[-1])
+                same = (view.n_edges == n
+                        and np.array_equal(view.voff.cpu().numpy(), voff)
+                        and np.array_equal(view.dst[:n].cpu().numpy(),
+                                           dst[:n])
+                        and np.array_equal(view.prop[:n].cpu().numpy(),
+                                           prop[:n]))
+                if not same:
+                    raise AssertionError(
+                        "phase 10: the LSMGraph's materialize_csr differs "
+                        "from the in-place CSR baseline's numpy CSR")
+            else:
+                view = bench_analytics._view_from_baseline(sys_, V, dev)
+            for aname in kern:
+                _bench_agree(f"fig12_{aname}_{name}", aname,
+                             kern[aname](view), plain[aname](view), worst)
+            if snap is not None:
+                snap.release()
+    secs = time.perf_counter() - t0
+    log(f"phase 10 outputs ({secs:.1f} s): the LSMGraph's CSR "
+        f"({view.n_vertices} vertices, {n} edges) equals the in-place "
+        f"CSR's; Fig 12's {len(kern)} algorithms on {len(systems)} "
+        f"systems agree with the plain versions; worst error by kind "
+        f"(PageRank: relative L1, else max abs): " + ", ".join(
+            f"{kind} {err:.3e} ({name})"
+            for kind, (err, name) in sorted(worst.items())))
+    return dict(seconds=secs, worst=worst)
+
+
+def benchmarks_path(dev, smi="", large=True, log=print):
+    """Phase 10: every suite of the port's benchmark harness on ``dev``, at
+    ``BENCH_SCALE=large`` (``large``) or the default scale; each suite's
+    rows checked and printed with ``smi``, and its launches counted from
+    zero."""
+    import io
+
+    from repro_torch.benchmarks import common, smoke
+    from repro_torch.benchmarks.run import suites
+    from repro_torch.kernels import ops
+    sc = common.Scale(scale=10 if large else 1)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    per_suite, rows = {}, {}
+    with common.use_scale(sc):
+        for label, fn in suites():
+            buf = io.StringIO()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                fn(dev)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+            errors = smoke._check_rows(lines) or (
+                [] if lines else ["no rows"])
+            if errors:
+                raise AssertionError(f"suite {label}: {errors[:5]}")
+            for line in lines:
+                log(f"bench {line} [{smi}]")
+                name, us, derived = line.split(",", 2)
+                rows[name] = (float(us), derived)
+            launched = {k: v for k, v in counts.items() if v}
+            log(f"bench launches ({label}): {launched}; {wall:.1f} s "
+                f"[{smi}]")
+            per_suite[label] = dict(seconds=wall, launches=launched)
+            for k, v in counts.items():
+                total[k] += v
+        check_bench_outputs(dev, log)
+    if rows["sharded_oracle_concurrent"][1] != "identical=True":
+        raise AssertionError(f"sharded_oracle_concurrent: "
+                             f"{rows['sharded_oracle_concurrent'][1]}")
+    if dev.type == "cuda":   # a CPU rehearsal runs the plain versions
+        for name in ("kernel_segsum_kernel", "kernel_attn_kernel"):
+            if "route=cuda" not in rows[name][1].split(";"):
+                raise AssertionError(f"{name} did not run the kernel: "
+                                     f"{rows[name][1]}")
+        need_launches(total, BENCH_KERNELS, "the benchmark suites")
+    by = [label for label, v in per_suite.items()
+          if v["launches"].get("batched_searchsorted")]
+    if by:
+        log(f"batched_searchsorted launched in {by}")
+    else:
+        log("batched_searchsorted: no launch in the suites. Fig 16's "
+            "index-off read is a point read (Snapshot.neighbors of one "
+            "vertex takes neighbors_scalar, as in the reference), which "
+            "finds a vertex's slice in each run by csr.run_lookup, a "
+            "torch.searchsorted of one key (the reference's: a "
+            "jnp.searchsorted); the kernel lies on run_lookup_batch("
+            "use_pallas=True) and csr.runs_lookup_batch, which phase 5 "
+            "drives")
+    return dict(scale=dict(V=sc.V, E=sc.E, scale=sc.scale),
+                suites=per_suite, launches=total, rows=len(rows))
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -2224,6 +2420,15 @@ def main(argv=None) -> int:
                            "run2": svc["run2"]["launches"]}
     print(f"main path (service) launches: {launches['service']}")
     print(f"main path (service): {json.dumps(svc)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bench = benchmarks_path(dev, smi)
+    launches["benchmarks"] = bench["launches"]
+    print(f"main path (benchmarks) launches: {bench['launches']}")
+    print(f"main path (benchmarks): {json.dumps(bench)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"

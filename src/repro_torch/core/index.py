@@ -16,11 +16,16 @@ reference clears it over every output segment's range, which a partial
 compaction's overlap can widen past the source segment, dropping the
 entries of source-level segments that were not compacted (ROADMAP,
 faults of the reference).
+
+``CompactIndex`` is the paper's 2-slot + page-set variant (Fig. 8), a copy of
+the reference's host-side numpy class: the space benchmark (Fig 14) and the
+fidelity tests use it, the store does not.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .types import BYTES_PER_INDEX_ENTRY, INVALID_VID
@@ -151,3 +156,93 @@ def lookup_batch(idx: IndexState, vs: torch.Tensor):
     return (idx.l0_first_fid[v_c], idx.l0_min_fid[v_c],
             idx.lvl_fid[v_c], idx.lvl_off[v_c])
 
+
+
+# ---------------------------------------------------------------------------
+# Compact 2-slot + page-set variant (paper Fig. 8) — host-side, numpy.
+# ---------------------------------------------------------------------------
+
+_PAGE_BYTES = 4096
+_ENTRY_BYTES = 12  # (level:2, fid:4, off:4) padded
+
+
+class CompactIndex:
+    """The paper's compressed index: per-vertex array rows hold the L0 first
+    fid + up to two inline (level, fid, off) positions; extra positions spill
+    into 4 KB pages allocated per contiguous vertex interval (split-in-half on
+    overflow, merge-on-shrink)."""
+
+    def __init__(self, vmax: int, interval: int = 1024):
+        self.vmax = vmax
+        self.interval = interval
+        self.l0_first = np.full(vmax, INVALID_VID, np.int64)
+        self.l0_min = np.zeros(vmax, np.int64)
+        self.slots: List[Dict[int, Tuple[int, int]]] = [
+            dict() for _ in range(vmax)]
+        # page directory: vertex interval -> page id;
+        # pages: id -> {v: {lvl: (fid, off)}}
+        self._pages: Dict[int, Dict[int, Dict[int, Tuple[int, int]]]] = {}
+        self._page_of: Dict[int, int] = {}
+        self._next_page = 0
+
+    # -- write path ---------------------------------------------------------
+    def set_position(self, v: int, level: int, fid: int, off: int) -> None:
+        row = self.slots[v]
+        if level in row or len(row) < 2:
+            row[level] = (fid, off)
+            return
+        # Spill the largest-level inline entry to the page set (bottom levels
+        # hold 99 % of edges — keep hot low levels inline, paper intuition).
+        pid = self._page_for(v)
+        spill_lvl = max(row)
+        if level < spill_lvl:
+            self._pages[pid].setdefault(v, {})[spill_lvl] = row.pop(spill_lvl)
+            row[level] = (fid, off)
+        else:
+            self._pages[pid].setdefault(v, {})[level] = (fid, off)
+        self._maybe_split(pid)
+
+    def clear_position(self, v: int, level: int) -> None:
+        self.slots[v].pop(level, None)
+        pid = self._page_of.get(v // self.interval)
+        if pid is not None:
+            entry = self._pages[pid].get(v)
+            if entry:
+                entry.pop(level, None)
+
+    # -- read path ----------------------------------------------------------
+    def get_positions(self, v: int) -> Dict[int, Tuple[int, int]]:
+        out = dict(self.slots[v])
+        pid = self._page_of.get(v // self.interval)
+        if pid is not None:
+            out.update(self._pages[pid].get(v, {}))
+        return out
+
+    # -- pages ---------------------------------------------------------------
+    def _page_for(self, v: int) -> int:
+        key = v // self.interval
+        if key not in self._page_of:
+            self._page_of[key] = self._next_page
+            self._pages[self._next_page] = {}
+            self._next_page += 1
+        return self._page_of[key]
+
+    def _maybe_split(self, pid: int) -> None:
+        # 4 KB page capacity in entries; split vertex intervals on overflow
+        # (the paper splits the one interval in half; this halves the global
+        # interval and rehashes — an upper bound on page count, same
+        # asymptotics).
+        n_entries = sum(len(m) for m in self._pages[pid].values())
+        if n_entries * _ENTRY_BYTES <= _PAGE_BYTES or self.interval <= 1:
+            return
+        self.interval //= 2
+        old_pages = self._pages
+        self._pages, self._page_of, self._next_page = {}, {}, 0
+        for page in old_pages.values():
+            for v, entry in page.items():
+                npid = self._page_for(v)
+                self._pages[npid][v] = entry
+
+    def nbytes(self) -> int:
+        inline = self.vmax * (8 + 2 * _ENTRY_BYTES + 8)
+        return inline + len(self._pages) * _PAGE_BYTES

@@ -371,6 +371,9 @@ class IOCounters:
         self.__dict__["_mirror"] = mirror
         return self
 
+    def total_write(self) -> int:
+        return self.flush_write + self.compaction_write + self.index_write
+
     def durable_write(self) -> int:
         """Actual bytes written to disk (WAL + segment files)."""
         return self.wal_write + self.segment_write

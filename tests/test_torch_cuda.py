@@ -1073,3 +1073,59 @@ def test_cuda_sharded_store_reads_equal_oracle(tmp_path):
         for q, a in zip(queries, out):
             np.testing.assert_array_equal(a, final[int(q)], err_msg=str(s))
     g.close()
+
+
+def _store_tensors(store):
+    """Every tensor of a store's published state: the MemGraph, the index
+    and each resident run's arrays."""
+    st = store._state
+    for tup in (st.mem, st.index):
+        yield from (x for x in tup if isinstance(x, torch.Tensor))
+    for lvl in st.levels:
+        for rf in lvl:
+            if rf.arrays is not None:
+                yield from (x for x in rf.arrays
+                            if isinstance(x, torch.Tensor))
+
+
+@pytest.mark.cuda
+def test_cuda_benchmark_suites_launch_the_kernels(monkeypatch):
+    """Fig 16/17 and Fig 12/13 of the port's benchmark harness on the card
+    at smoke scale, with the presence-filter suite beside them: the point
+    reads of Fig 16 and the analytics of Fig 12 take no batched read, the
+    only path that tests filters on the device (as in the reference).  The
+    suites must launch ``presence_matrix``, ``merge_pairs``,
+    ``gather_segsum`` and ``gather_segmin``, and every store they build
+    must hold no tensor off the card."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import (bench_analytics, bench_filters,
+                                        bench_index, common)
+    from repro_torch.core import store as store_mod
+    dev = _card()
+    stores = []
+    init = store_mod.LSMGraph.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        stores.append(self)
+    monkeypatch.setattr(store_mod.LSMGraph, "__init__", record)
+    ops.reset_launches()
+    buf = io.StringIO()
+    with common.use_scale(common.Scale(smoke=True)), \
+            contextlib.redirect_stdout(buf):
+        for suite in (bench_index, bench_analytics, bench_filters):
+            suite.main(dev)
+    counts = ops.launch_counts()
+    for name in ("presence_matrix", "merge_pairs", "gather_segsum",
+                 "gather_segmin"):
+        assert counts[name] > 0, (name, counts)
+    rows = buf.getvalue().splitlines()
+    assert any(r.startswith("fig16_read_without_index,") for r in rows)
+    assert sum(r.startswith("fig12_") for r in rows) == 25
+    assert len(stores) >= 5
+    for s in stores:
+        assert s.device == dev
+        tensors = list(_store_tensors(s))
+        assert tensors and all(t.device == dev for t in tensors)

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py`` and not the port's scripts in ``tools/`` (kernel timing,
-the lock lint) imports ``jax`` or anything of the JAX package ``repro``
-(checked on the source, so it holds whatever is installed)."""
+the lock lint, the observability and trajectory smoke gates) imports
+``jax``, anything of the JAX package ``repro`` or of the reference's
+top-level ``benchmarks`` package (checked on the source, so it holds
+whatever is installed)."""
 import ast
 from pathlib import Path
 
@@ -11,7 +13,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "segment_bench.py",
     ROOT / "tools" / "segment_variants.py", ROOT / "tools" / "probe_bench.py",
-    ROOT / "tools" / "lint_locks_torch.py"]
+    ROOT / "tools" / "lint_locks_torch.py",
+    ROOT / "tools" / "obs_smoke_torch.py",
+    ROOT / "tools" / "bench_trajectory_smoke_torch.py"]
+BLOCKED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path):
@@ -41,6 +46,18 @@ def test_port_files_found():
                 "launch/graph_service.py", "obs/amplification.py",
                 "obs/export.py", "obs/trace_export.py"):
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    for name in ("common", "run", "smoke", "trajectory", "bench_update",
+                 "bench_analytics", "bench_space", "bench_memcache",
+                 "bench_index", "bench_mixed", "bench_kernels",
+                 "bench_read_batch", "bench_filters", "bench_durability",
+                 "bench_sharded"):
+        assert (ROOT / "src" / "repro_torch" / "benchmarks" /
+                f"{name}.py").exists(), name
+    for rel in ("baselines/common.py", "baselines/csr_inplace.py",
+                "baselines/lsm_kv.py", "baselines/llama_snapshots.py",
+                "baselines/log_append.py", "examples/quickstart.py",
+                "examples/streaming_updates.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
 
 def test_port_modules_import_without_jax():
@@ -54,13 +71,20 @@ def test_port_modules_import_without_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                  'benchmarks'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch.shard, repro_torch.launch.graph_service\n"
         "import repro_torch.obs.amplification, repro_torch.obs.export\n"
         "import repro_torch.obs.trace_export\n"
         "from repro_torch.shard import open_sharded_store\n"
+        "import repro_torch.baselines, repro_torch.core.index\n"
+        "import repro_torch.benchmarks.run, repro_torch.benchmarks.smoke\n"
+        "import repro_torch.benchmarks.trajectory\n"
+        "import repro_torch.examples.streaming_updates\n"
+        "from repro_torch.benchmarks.run import suites\n"
+        "suites()\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
@@ -72,6 +96,5 @@ def test_port_modules_import_without_jax():
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    bad = [m for m in _imported_roots(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    bad = [m for m in _imported_roots(path) if m.split(".")[0] in BLOCKED]
     assert not bad, f"{path.name} imports {bad}"

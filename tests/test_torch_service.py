@@ -2,10 +2,12 @@
 the JAX package's ``repro.launch.graph_service``.
 
 ``powerlaw_edges`` (the service's stream) must give the reference's arrays
-byte for byte.  The service runs in this process through ``main(argv)``
-with ``--device cpu``, once durable on a single store (multi-level
-PageRank, a metrics report and a trace) and once sharded, durable, with
-the chaos phase; the reference runs on the same arguments.  Their printed
+byte for byte.  The service runs with ``--device cpu``, once durable on a
+single store (multi-level PageRank, a metrics report and a trace) and once
+sharded, durable, with the chaos phase; the reference runs on the same
+arguments.  Each run has a fresh interpreter of its own, so that each
+package's process-wide metric registry holds only that run's series: in a
+test worker, other files' stores and schedulers register theirs.  Their printed
 deterministic lines (level sizes, top-5, reads found, per-shard edges and
 taus, the chaos phase's masked and healed reads, the restored edge count)
 must be equal, timings aside, and so must the family sets of each phase
@@ -14,8 +16,11 @@ service's own flush, so neither package's background threads can change
 the layout.  Tolerance: none (integer output; PageRank's top-5 order).
 """
 import json
+import os
 import re
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,7 +28,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.data.graphgen import powerlaw_edges as ref_powerlaw  # noqa: E402
-from repro.launch import graph_service as ref_service  # noqa: E402
 from repro_torch.data import powerlaw_edges  # noqa: E402
 from repro_torch.launch import graph_service  # noqa: E402
 
@@ -78,15 +82,30 @@ def _pick(text, patterns):
     return out
 
 
-def _run_port(argv, capsys):
-    graph_service.main(argv + ["--device", "cpu"])
-    return capsys.readouterr().out
+def _service(package, argv):
+    """``package``'s graph service on ``argv`` in a fresh interpreter (one
+    torch intra-op thread); its standard output."""
+    code = ("import sys\n"
+            + ("import torch\ntorch.set_num_threads(1)\n"
+               if package == "repro_torch" else "")
+            + f"from {package}.launch import graph_service\n"
+            f"sys.argv = ['graph_service'] + {argv!r}\n"
+            "graph_service.main()\n")
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    return r.stdout
 
 
-def _run_reference(argv, capsys, monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["graph_service"] + argv)
-    ref_service.main()
-    return capsys.readouterr().out
+def _run_port(argv):
+    return _service("repro_torch", argv + ["--device", "cpu"])
+
+
+def _run_reference(argv):
+    return _service("repro", argv)
 
 
 def _families(path):
@@ -96,8 +115,7 @@ def _families(path):
     return {ph: set(snap["families"]) for ph, snap in doc["phases"].items()}
 
 
-def test_service_single_store_matches_reference(tmp_path, capsys,
-                                                monkeypatch):
+def test_service_single_store_matches_reference(tmp_path):
     """A durable single store with merge-free multi-level PageRank, a
     metrics report and a trace: the same levels, top-5, reads and restart
     verdict as the reference, and the same report families."""
@@ -105,12 +123,9 @@ def test_service_single_store_matches_reference(tmp_path, capsys,
             "pagerank-multilevel", "--queries", "100"]
     got = _run_port(argv + ["--durable", str(tmp_path / "p"),
                             "--metrics", str(tmp_path / "m.json"),
-                            "--trace", str(tmp_path / "t.json")], capsys)
-    from repro_torch import obs
-    obs.REGISTRY.disable_tracing()
+                            "--trace", str(tmp_path / "t.json")])
     want = _run_reference(argv + ["--durable", str(tmp_path / "r"),
-                                  "--metrics", str(tmp_path / "r.json")],
-                          capsys, monkeypatch)
+                                  "--metrics", str(tmp_path / "r.json")])
     picks = _SINGLE + [r"after restart: (\w+)"]
     assert _pick(got, picks) == _pick(want, picks)
     assert "after restart: OK" in got
@@ -123,15 +138,13 @@ def test_service_single_store_matches_reference(tmp_path, capsys,
     assert any(e["ph"] == "X" for e in trace["traceEvents"])
 
 
-def test_service_sharded_durable_chaos_matches_reference(tmp_path, capsys,
-                                                        monkeypatch):
+def test_service_sharded_durable_chaos_matches_reference(tmp_path):
     argv = ["--vertices", "500", "--edges", "2000", "--analytics", "2hop",
             "--queries", "100", "--shards", "2", "--chaos"]
     got = _run_port(argv + ["--durable", str(tmp_path / "p"),
-                            "--metrics", str(tmp_path / "m.json")], capsys)
+                            "--metrics", str(tmp_path / "m.json")])
     want = _run_reference(argv + ["--durable", str(tmp_path / "r"),
-                                  "--metrics", str(tmp_path / "r.json")],
-                          capsys, monkeypatch)
+                                  "--metrics", str(tmp_path / "r.json")])
     assert "edge set restored" in got
     assert _pick(got, _SHARDED) == _pick(want, _SHARDED)
     fams = _families(tmp_path / "m.json")
@@ -152,3 +165,20 @@ def test_service_chaos_needs_shards_and_durable(capsys):
     with pytest.raises(SystemExit):
         graph_service.main(["--chaos", "--device", "cpu"])
     assert "--chaos requires" in capsys.readouterr().err
+
+
+def test_obs_smoke_tool_on_the_port():
+    """``tools/obs_smoke_torch.py`` runs the port's service twice with
+    ``--device cpu`` and holds both metrics reports to the checks of
+    ``tools/obs_smoke.py``, which it loads rather than copies."""
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, str(root / "tools" /
+                                            "obs_smoke_torch.py"),
+                        "--device", "cpu"], capture_output=True, text=True,
+                       timeout=300, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                                OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "obs-smoke [single-durable]" in r.stdout
+    assert "obs-smoke [sharded-durable]" in r.stdout
+    assert r.stdout.rstrip().endswith("obs-smoke OK")
