@@ -120,12 +120,31 @@ line):
     ``presence_matrix``, ``merge_pairs``, ``gather_segsum``,
     ``gather_segmin`` and ``flash_attention`` must each launch.  Where
     ``batched_searchsorted`` does not launch, the phase says why.
-11. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
-    line ``{"ok": true, "device": {...}}``.
+11. The distributed graph layer on the card: the last-writer-wins CSR of
+    phase 3's whole stream (4,194,304 vertices) partitioned over 4 shards
+    by ``partition_csr``; 4 ranks (processes started with ``spawn``,
+    joined by gloo through a temporary file, every shard on this card,
+    collectives staged through the host) run distributed PageRank for 10
+    iterations with each of the fp32, bf16 and int8 exchanges, each held
+    against the single-store ``analytics.pagerank`` of the same CSR on the
+    card and against float64 power iteration on the host (max |d| /
+    max(pr) under 1e-5, 2e-2 and 5e-2, and relative L1 under 1e-4, 1e-3
+    and 1e-2, for each witness); ``gather_segsum`` must
+    launch once a rank an iteration an exchange (120 in all), and rank 0
+    holds it against its plain version at its shard's shapes (not
+    counted).  Then phase 3's batches (rank r every 4th) through
+    ``make_mesh_write_router`` with buckets of the batch size: every
+    shard's records, markers included, equal to the host router's
+    (``bucket_edge_batches``) on the same batches, none dropped.  A rank
+    that raises or times out fails the phase.
+12. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
+    launches as ``launches_distributed``), the ``nvidia-smi`` line, and the
+    last line ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before phases 3 to 10 (each run of
 phase 9, each read of phase 8 and each suite of phase 10) and read just
-after each.  The port imports neither ``jax`` nor the JAX package; this
+after each; each rank of phase 11 zeroes its own before its PageRank runs
+and reads them after.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
 """
@@ -850,6 +869,20 @@ def _reversed_bfs(src_o, dst_o, n, source):
         frontier[cand] = True
 
 
+def pagerank_f64(voff, dst, iters):
+    """PageRank (damping 0.85) of the CSR (voff, dst) by float64 power
+    iteration on the host: the independent reference of phases 4 and 11."""
+    import scipy.sparse as sp
+    n = len(voff) - 1
+    deg = np.diff(voff)
+    a = sp.csr_matrix((np.ones(len(dst)), dst, voff), shape=(n, n))
+    x = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        y = a @ (x / np.maximum(deg, 1))
+        x = 0.15 / n + 0.85 * (y + x[deg == 0].sum() / n)
+    return x
+
+
 def analytics_path(dev, store, oracle, seed, log=print, check=None,
                    check_runs=None):
     """Drive the port's analytics path on a fresh snapshot and hold each
@@ -943,11 +976,7 @@ def analytics_path(dev, store, oracle, seed, log=print, check=None,
     log(f"check materialize_csr: voff, dst, prop byte-equal to the numpy "
         f"last-writer-wins CSR ({e_o} edges over {n_runs} runs)")
 
-    a = sp.csr_matrix((np.ones(e_o), dst_o, voff_o), shape=(n, n))
-    x = np.full(n, 1.0 / n)
-    for _ in range(10):
-        y = a @ (x / np.maximum(deg_o, 1))
-        x = 0.15 / n + 0.85 * (y + x[deg_o == 0].sum() / n)
+    x = pagerank_f64(voff_o, dst_o, 10)
     pr = results["pagerank"].double().cpu().numpy()
     rel = np.abs(pr - x).sum() / np.abs(x).sum()
     if not rel <= PR_REL_L1:
@@ -2223,6 +2252,309 @@ def benchmarks_path(dev, smi="", large=True, log=print):
                 suites=per_suite, launches=total, rows=len(rows))
 
 
+# ------------------------------------------------------------------ phase 11
+DIST_RANKS = 4
+DIST_ITERS = 10
+# Distributed PageRank is held against two witnesses of the same CSR: the
+# port's single-store PageRank on the card, and float64 power iteration on
+# the host (``pagerank_f64``, independent of every kernel; the plain
+# float32 reduce is no witness at 1e-5 of the largest rank, since
+# index_add_ adds a hub's in-edges one at a time).
+DIST_WITNESSES = ("card", "f64")
+# max |d| / max(pr).  fp32: at scale 22 a rank is about 2.4e-7, so an
+# absolute 1e-6 could not fail; float32 sums in another order stay far
+# below 1e-5 of the largest.  bf16 and int8: tests/test_distributed.py's
+# bounds, measured as there.
+DIST_BOUND = {"fp32": 1e-5, "bf16": 2e-2, "int8": 5e-2}
+# And the relative L1 over all vertices, as phase 10 holds PageRank: a
+# bound on max |d| alone passes an exchange that loses the low-rank
+# vertices, whose ranks sit far below 2e-2 of the largest.  fp32 is phase
+# 10's float32 budget; bf16 and int8 are a few times the readings of the
+# scale-22 stream on an H100 (PERF.md, phase 11).
+DIST_REL_L1 = {"fp32": PR_REL_L1, "bf16": 1e-3, "int8": 1e-2}
+
+
+def _dist_rank(rank, n_ranks, workdir, batch_cap, seed, device):
+    """One rank of phase 11, in a process of its own: distributed PageRank
+    with each exchange on its shard on the card, the reduce's kernel
+    against its plain version (rank 0, outside the counts), and its share
+    of the stream through the mesh write router, held against the host
+    router.  ``device`` is the card (``"cuda:0"``), or ``"cpu"`` for a
+    rehearsal, where no kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (EXCHANGES, ShardedCSR,
+                                              make_distributed_pagerank)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.shard import (RangePartition, bucket_edge_batches,
+                                   make_mesh_write_router)
+    wd = Path(workdir)
+    meta = json.loads((wd / "meta.json").read_text())
+    dev = torch.device(device)
+    mesh = make_shard_mesh(n_ranks, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def load(name):
+        return np.load(wd / f"{name}.npy", mmap_mode="r")
+    shard = ShardedCSR(dst=load("dst"), seg=load("seg"), wt=load("wt"),
+                       deg=load("deg"), v_start=load("v_start"),
+                       n_vertices=meta["n_vertices"], n_shards=n_ranks)
+    refs = {w: np.load(wd / f"pr_{w}.npy") for w in DIST_WITNESSES}
+    n = meta["n_vertices"]
+    out = {}
+    # Warm-up, not counted: the kernel library's load and first launch.
+    make_distributed_pagerank(mesh, shard, iters=1)()
+    ops.reset_launches()
+    pr = {}
+    for ex in EXCHANGES:
+        run = make_distributed_pagerank(mesh, shard, iters=DIST_ITERS,
+                                        exchange=ex)
+        staged0 = mesh.staged_bytes
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        x = run()
+        sync()
+        secs = time.perf_counter() - t0
+        x = x.cpu().numpy()
+        pr[ex] = dict(ms_per_iter=secs * 1e3 / DIST_ITERS,
+                      err={w: float(np.abs(x[:n] - r).max() / r.max())
+                           for w, r in refs.items()},
+                      rel_l1={w: float(np.abs(x[:n] - r).sum()
+                                       / np.abs(r).sum())
+                              for w, r in refs.items()},
+                      finite=bool(np.isfinite(x).all()),
+                      pads_zero=bool((x[n:] == 0).all()),
+                      staged_bytes=mesh.staged_bytes - staged0)
+    out["pagerank"] = pr
+    out["launches"] = ops.launch_counts()
+    if rank == 0 and dev.type == "cuda":
+        # The reduce's kernel at this shard's shapes, on integer inputs
+        # (every partial sum exact in any order), as phase 4 checks it.
+        local = shard.local(rank, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 29)
+        e, vl = local.dst.shape[0], local.v_local
+        choice = torch.tensor([1.0, -1.0, 0.0, 2.0], device=dev)
+        wt = choice[torch.randint(0, 4, (e,), generator=gen, device=dev)]
+        x = torch.randint(-2, 3, (n_ranks * vl,), generator=gen,
+                          device=dev).float()
+        got = sr.gather_segsum_cuda(local.dst, local.seg_id, wt, x, vl)
+        want = sr.gather_segsum_ref(local.dst, local.seg_id, wt, x, vl)
+        torch.cuda.synchronize(dev)
+        out["kernel"] = dict(
+            shape=f"E={e} edges, n_out={vl}, len(x)={x.shape[0]}",
+            max_abs_err=float((got - want).abs().max()),
+            ok=bool(torch.allclose(got, want, rtol=SEG_RTOL, atol=SEG_ATOL)),
+            ms=time_ms(lambda: sr.gather_segsum_cuda(
+                local.dst, local.seg_id, wt, x, vl)),
+            plain_ms=time_ms(lambda: sr.gather_segsum_ref(
+                local.dst, local.seg_id, wt, x, vl), iters=3, warmup=1))
+        del local, wt, x, got, want
+
+    # Routing: batch b goes in round b // n_ranks from rank b % n_ranks.
+    src, dst, prop, ins = (load(k) for k in ("s_src", "s_dst", "s_prop",
+                                              "s_ins"))
+    offs = np.load(wd / "s_offs.npy")
+    nb = len(offs) - 1
+    part = RangePartition.for_vmax(meta["vmax"], n_ranks)
+    router = make_mesh_write_router(mesh, part, bucket_cap=batch_cap)
+    staged0 = mesh.staged_bytes
+    sent = dropped = 0
+    kept = []
+
+    def col(a, lo, hi, dtype):
+        buf = np.zeros(batch_cap, dtype)
+        buf[:hi - lo] = a[lo:hi]
+        return torch.from_numpy(buf).to(dev)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for b0 in range(0, nb, n_ranks):
+        b = b0 + rank
+        lo, hi = (int(offs[b]), int(offs[b + 1])) if b < nb else (0, 0)
+        rs, rd, rp, rm, rv, drop = router(
+            col(src, lo, hi, np.int32), col(dst, lo, hi, np.int32),
+            col(prop, lo, hi, np.float32),
+            col(~np.asarray(ins[lo:hi]), 0, hi - lo, np.int32), hi - lo)
+        keep = rv.bool()
+        kept.append(torch.stack([rs, rd, rp.view(torch.int32), rm])[:, keep])
+        sent += hi - lo
+        dropped += int(drop[0])
+    sync()
+    route_s = time.perf_counter() - t0
+    got = torch.cat(kept, dim=1).cpu().numpy()
+    del kept
+    # The host router on the same batches, in the same order.
+    want = [[], [], [], []]
+    for b in range(nb):
+        lo, hi = int(offs[b]), int(offs[b + 1])
+        bucket = bucket_edge_batches(part, src[lo:hi], dst[lo:hi],
+                                     prop[lo:hi])[rank]
+        if bucket is None:
+            continue
+        marker = 0 if bool(ins[lo]) else 1
+        want[0].append(bucket[0])
+        want[1].append(bucket[1])
+        want[2].append(bucket[2].view(np.int32))
+        want[3].append(np.full(len(bucket[0]), marker))
+    want = np.stack([np.concatenate(w).astype(np.int32) for w in want])
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (got.shape, want.shape) if got.shape != want.shape else \
+            int((got != want).any(axis=0).sum())
+        raise AssertionError(f"rank {rank}: the mesh write router's records "
+                             f"differ from the host router's: {bad}")
+    if not (got[0] // part.v_local == rank).all():
+        raise AssertionError(f"rank {rank}: a record of another owner")
+    out["routing"] = dict(sent=sent, received=int(got.shape[1]),
+                          dropped=dropped, secs=route_s,
+                          markers=int(got[3].sum()),
+                          rounds=-(-nb // n_ranks),
+                          staged_bytes=mesh.staged_bytes - staged0)
+    return out
+
+
+def distributed_path(dev, oracle, stream, seed, batch_cap, smi="",
+                     log=print):
+    """Phase 11: the distributed graph layer on the card.  The oracle's CSR
+    (phase 3's whole stream) is partitioned over 4 shards; 4 ranks
+    (spawned processes joined by gloo, each shard on this card) run
+    distributed PageRank with each exchange and route phase 3's batches
+    through the mesh write router."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.analytics import pagerank
+    from repro_torch.analytics.view import CSRView
+    from repro_torch.core.distributed import EXCHANGES, partition_csr
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    voff, dst, _ = oracle
+    n = len(voff) - 1
+    view = CSRView(voff=torch.from_numpy(voff.astype(np.int32)).to(dev),
+                   dst=torch.from_numpy(dst.astype(np.int32)).to(dev),
+                   prop=torch.ones(len(dst), device=dev), n_vertices=n,
+                   n_edges=len(dst))
+    with _uncounted():
+        refs = dict(card=pagerank(view, iters=DIST_ITERS).cpu().numpy())
+    refs["f64"] = pagerank_f64(voff, dst, DIST_ITERS)
+    t0 = time.perf_counter()
+    shard = partition_csr(view, DIST_RANKS)
+    del view
+    t_part = time.perf_counter() - t0
+    sizes = np.asarray(stream["sizes"], np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    if sizes.max() > batch_cap:
+        raise AssertionError(f"a batch of {sizes.max()} records, above "
+                             f"batch_cap {batch_cap}")
+    root = tempfile.mkdtemp(prefix="lsmg-dist-")
+    try:
+        t0 = time.perf_counter()
+        for name in ("dst", "seg", "wt", "deg", "v_start"):
+            np.save(Path(root) / f"{name}.npy", getattr(shard, name))
+        for w, ref in refs.items():
+            np.save(Path(root) / f"pr_{w}.npy", ref)
+        for k, dt in (("src", np.int32), ("dst", np.int32),
+                      ("prop", np.float32), ("ins", np.bool_)):
+            np.save(Path(root) / f"s_{k}.npy", stream[k].astype(dt))
+        np.save(Path(root) / "s_offs.npy", offs)
+        (Path(root) / "meta.json").write_text(json.dumps(
+            dict(n_vertices=n, vmax=n)))
+        t_save = time.perf_counter() - t0
+        log(f"distributed: {shard.n_shards} shards of {shard.v_local} "
+            f"vertices, edges {[int(np.count_nonzero(w)) for w in shard.wt]}"
+            f"; partition {t_part:.1f} s, files {t_save:.1f} s")
+        del shard
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dist_rank, DIST_RANKS, root, batch_cap, seed,
+                            str(dev), timeout=600)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    want = DIST_RANKS * DIST_ITERS * len(EXCHANGES)
+    each = [r["launches"]["gather_segsum"] for r in ranks]
+    if dev.type == "cuda" and \
+            each != [DIST_ITERS * len(EXCHANGES)] * DIST_RANKS:
+        raise AssertionError(f"gather_segsum launched {each} times by rank, "
+                             f"want {DIST_ITERS * len(EXCHANGES)} each "
+                             f"({want} in all)")
+    pr = {}
+    for ex in EXCHANGES:
+        if not all(r["pagerank"][ex]["finite"] and
+                   r["pagerank"][ex]["pads_zero"] for r in ranks):
+            raise AssertionError(f"{ex}: a rank's PageRank is not finite or "
+                                 f"its pads are not 0")
+        err = {w: max(r["pagerank"][ex]["err"][w] for r in ranks)
+               for w in DIST_WITNESSES}
+        l1 = {w: max(r["pagerank"][ex]["rel_l1"][w] for r in ranks)
+              for w in DIST_WITNESSES}
+        for w in DIST_WITNESSES:
+            if not err[w] < DIST_BOUND[ex]:
+                raise AssertionError(
+                    f"{ex}: distributed PageRank differs from the {w} "
+                    f"witness by {err[w]} of its largest rank (bound "
+                    f"{DIST_BOUND[ex]})")
+            if not l1[w] <= DIST_REL_L1[ex]:
+                raise AssertionError(
+                    f"{ex}: distributed PageRank differs from the {w} "
+                    f"witness by relative L1 {l1[w]} (bound "
+                    f"{DIST_REL_L1[ex]})")
+        pr[ex] = dict(err=err, rel_l1=l1, ms_per_iter=max(
+            r["pagerank"][ex]["ms_per_iter"] for r in ranks),
+            staged_bytes=sum(r["pagerank"][ex]["staged_bytes"]
+                             for r in ranks))
+        how = "; ".join(f"{w}: max |d| / max(pr) {err[w]:.3e}, relative L1 "
+                        f"{l1[w]:.3e}" for w in DIST_WITNESSES)
+        log(f"distributed PageRank {ex}: {pr[ex]['ms_per_iter']:.2f} ms an "
+            f"iteration (slowest rank, host clock, staged exchange "
+            f"included); against {how} (bounds {DIST_BOUND[ex]} and "
+            f"{DIST_REL_L1[ex]}); {pr[ex]['staged_bytes']} bytes staged "
+            f"through the host [{smi}]")
+    k = ranks[0].get("kernel")
+    if dev.type == "cuda" and not (k and k["ok"]):
+        raise AssertionError(f"gather_segsum on rank 0's shard differs from "
+                             f"its plain version: {k}")
+    if k:
+        log(f"kernel gather_segsum (rank 0's shard, {k['shape']}): within "
+            f"rtol {SEG_RTOL} / atol {SEG_ATOL} of plain (max abs err "
+            f"{k['max_abs_err']}); {k['ms']:.3f} ms, plain "
+            f"{k['plain_ms']:.3f} ms [{smi}]")
+    rt = [r["routing"] for r in ranks]
+    sent = sum(r["sent"] for r in rt)
+    received = sum(r["received"] for r in rt)
+    dropped = sum(r["dropped"] for r in rt)
+    if sent != int(sizes.sum()) or received + dropped != sent or dropped:
+        raise AssertionError(f"routing: sent {sent} of {int(sizes.sum())}, "
+                             f"received {received}, dropped {dropped}")
+    markers = sum(r["markers"] for r in rt)
+    if markers != int((~stream["ins"]).sum()):
+        raise AssertionError(f"routing: {markers} markers received, "
+                             f"{int((~stream['ins']).sum())} sent")
+    route_s = max(r["secs"] for r in rt)
+    routing = dict(records=sent, rounds=rt[0]["rounds"], secs=route_s,
+                   records_per_s=sent / route_s, markers=markers,
+                   staged_bytes=sum(r["staged_bytes"] for r in rt),
+                   dropped=dropped)
+    log(f"distributed routing: {sent} records in {routing['rounds']} rounds "
+        f"of {DIST_RANKS} batches, {routing['records_per_s']:.0f} records/s "
+        f"(slowest rank, host clock), {routing['staged_bytes']} bytes "
+        f"staged through the host; every shard's records equal the host "
+        f"router's, dropped 0 [{smi}]")
+    wall = time.perf_counter() - t_phase
+    log(f"distributed phase: {wall:.1f} s wall, ranks {t_ranks:.1f} s "
+        f"[{smi}]")
+    return dict(pagerank=pr, routing=routing, launches=launches,
+                kernel=k, wall_s=wall, ranks_s=t_ranks)
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -2430,6 +2762,17 @@ def main(argv=None) -> int:
     print(f"main path (benchmarks) launches: {bench['launches']}")
     print(f"main path (benchmarks): {json.dumps(bench)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dst11 = distributed_path(dev, oracle, stream, args.seed,
+                             store_config().batch_cap, smi)
+    launches["distributed"] = dst11.pop("launches")
+    print(f"main path (distributed) launches, summed over the "
+          f"{DIST_RANKS} ranks: {launches['distributed']}")
+    print(f"main path (distributed): {json.dumps(dst11)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"
         dev_ms = (f" ({r['device_ms']:.4f} ms device)"
@@ -2453,6 +2796,9 @@ def main(argv=None) -> int:
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
                | ({"device_ms": r["device_ms"]} if "device_ms" in r else {})
+               | ({"launches_distributed":
+                   launches["distributed"]["gather_segsum"]}
+                  if r["name"] == "gather_segsum" else {})
                for r in rows]
     print(json.dumps({"kernels": kernels}))
     print(smi)

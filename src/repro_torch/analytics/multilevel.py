@@ -72,11 +72,18 @@ def _degree(batch: RunBatch, n_out: int, device,
     return _spmv(batch, ones, n_out, use_pallas)
 
 
+def _views_device(views: List[RunView]) -> torch.device:
+    """The views' device: the first view's; with no view, the device an
+    empty ``RunViews`` holds, else the current CUDA card."""
+    if views:
+        return views[0].dst.device
+    return resolve_device(getattr(views, "device", None))
+
+
 def multilevel_degree(views: List[RunView], *, n_out: int,
                       use_pallas: bool = True) -> torch.Tensor:
-    """Live out-degree per vertex (float32), on the views' device (with no
-    views: the current CUDA card)."""
-    device = views[0].dst.device if views else resolve_device(None)
+    """Live out-degree per vertex (float32), on the views' device."""
+    device = _views_device(views)
     return _degree(run_batch(views, device), n_out, device, use_pallas)
 
 
@@ -85,7 +92,7 @@ def multilevel_pagerank(views: List[RunView], *, n_out: int, iters: int = 20,
                         use_pallas: bool = True) -> torch.Tensor:
     """PageRank without ever materializing a merged CSR: the runs are laid
     end to end once, then each sweep is one multi-run segment sum."""
-    device = views[0].dst.device if views else resolve_device(None)
+    device = _views_device(views)
     batch = run_batch(views, device)
     deg = _degree(batch, n_out, device, use_pallas)
     x = torch.full((n_out,), 1.0 / n_out, dtype=torch.float32,

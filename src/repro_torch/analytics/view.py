@@ -14,7 +14,7 @@ Everything stays on the store's device: the runs' records are read there
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -140,14 +140,24 @@ class RunView(NamedTuple):
     #                     0 invisible
 
 
+class RunViews(list):
+    """``multilevel_views``' result: a list of ``RunView`` that also holds
+    the snapshot's device, so that a snapshot with no visible run still
+    says where its aggregates live."""
+
+    def __init__(self, views=(), *, device: torch.device) -> None:
+        super().__init__(views)
+        self.device = device
+
+
 def multilevel_views(snapshot: Snapshot, *, weighted: bool = False
-                     ) -> List[RunView]:
+                     ) -> RunViews:
     """Per-run views for merge-free linear aggregation.
 
     Precondition: per (src, dst) key the record history alternates
     insert/delete, so the sum of ± weights telescopes to live membership.
     """
-    out: List[RunView] = []
+    out = RunViews(device=snapshot.device)
     for (src, dst, ts, marker, prop, fid) in snapshot.run_record_tensors():
         vis = ts <= snapshot.tau
         n_vis = int(vis.sum())

@@ -37,9 +37,9 @@ Partition / route / reassemble flow
   empty adjacency — element-wise identical to one store holding the whole
   graph.
 
-The reference's on-mesh write router (``make_mesh_write_router``, a
-bucketed ``all_to_all`` over ``core/distributed.py``) is not ported yet: it
-waits for the port of ``core/distributed.py`` to ``torch.distributed``.
+The on-mesh write router (``make_mesh_write_router``) routes by the same
+rule between the ranks of a ``torch.distributed`` mesh: a bucketed
+all-to-all over ``core/distributed.py``, one shard a rank.
 
 Tau-epoch snapshot protocol
 ---------------------------
@@ -76,7 +76,8 @@ latency.  Decisions land in the ``compaction_sched_*`` metric families.
 from __future__ import annotations
 
 from .partition import RangePartition, shard_scaled_config
-from .router import bucket_edge_batches, route_queries
+from .router import (bucket_edge_batches, make_mesh_write_router,
+                     route_queries)
 from .scheduler import CompactionScheduler
 from .store import (DegradedReport, ShardUnavailable, ShardWriteReceipt,
                     ShardedGraphStore, ShardedSnapshot, open_sharded_store)
@@ -84,6 +85,6 @@ from .store import (DegradedReport, ShardUnavailable, ShardWriteReceipt,
 __all__ = [
     "CompactionScheduler", "DegradedReport", "RangePartition",
     "ShardUnavailable", "ShardWriteReceipt", "ShardedGraphStore",
-    "ShardedSnapshot", "bucket_edge_batches", "open_sharded_store",
-    "route_queries", "shard_scaled_config",
+    "ShardedSnapshot", "bucket_edge_batches", "make_mesh_write_router",
+    "open_sharded_store", "route_queries", "shard_scaled_config",
 ]

@@ -1,10 +1,11 @@
 """Write and read routing for the sharded graph service.
 
-The port of ``repro.shard.router``'s host tiers.  Both share the ownership
+The port of ``repro.shard.router``.  Its three tiers share the ownership
 rule (``RangePartition``):
 
 * **Write router** — ``bucket_edge_batches`` groups one ``(src, dst,
-  prop)`` update batch by owner shard on the host.  Deletes route by the
+  prop)`` update batch by owner shard on the host (the single-process twin
+  of the mesh write router below).  Deletes route by the
   same rule, so a tombstone reaches the shard of the insert it annihilates.
 
 * **Read router** — ``route_queries`` splits a query vector by owner and
@@ -15,10 +16,10 @@ rule (``RangePartition``):
   unique query vector as contiguous per-shard slices, so the gathered
   (offsets, dst, prop) triples concatenate back in order.
 
-The reference's third tier, ``make_mesh_write_router`` (the bucketed
-``all_to_all`` over a device mesh), wraps ``core/distributed.py`` and is
-not in the port yet: it waits for the port of ``core/distributed.py`` to
-``torch.distributed``.
+* **Mesh write router** — ``make_mesh_write_router`` is the same owner rule
+  as a bucketed all-to-all between the ranks of a ``torch.distributed``
+  mesh (``core.distributed.make_route_edge_batches``), with a marker
+  channel, since one rank's batch may mix inserts and tombstones.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..core.distributed import make_route_edge_batches
 from .partition import RangePartition
 
 
@@ -74,4 +76,17 @@ def route_queries(part: RangePartition, vs
     return per_vids, per_pos, len(vs)
 
 
-__all__ = ["bucket_edge_batches", "route_queries"]
+def make_mesh_write_router(mesh, part: RangePartition, *, bucket_cap: int,
+                           axis: str = "data"):
+    """On-mesh write dispatch: the bucketed all-to-all router over the
+    ``data`` axis (one shard a rank), marker channel included.  Thin
+    wrapper over ``core.distributed.make_route_edge_batches``; every rank
+    calls the returned ``route(src, dst, prop, marker, n_valid)`` with its
+    own batch."""
+    return make_route_edge_batches(
+        mesh, v_local=part.v_local, n_shards=part.n_shards,
+        bucket_cap=bucket_cap, axis=axis)
+
+
+__all__ = ["bucket_edge_batches", "route_queries",
+           "make_mesh_write_router"]

@@ -29,7 +29,9 @@ run's upload before a reader on another thread (20 times), and serve
 durable shards on the card must read equal to the oracle at each sharded
 snapshot's per-shard τs, launch ``merge_pairs`` exactly once a round of
 every shard's spine across the pool's threads, and reopen onto the card.
-Every test skips where there is no card.
+Two gloo ranks sharing the card must give the single-store PageRank within
+1e-5 of its largest rank, through ``gather_segsum`` once a rank an
+iteration.  Every test skips where there is no card.
 """
 from types import SimpleNamespace
 
@@ -1129,3 +1131,51 @@ def test_cuda_benchmark_suites_launch_the_kernels(monkeypatch):
         assert s.device == dev
         tensors = list(_store_tensors(s))
         assert tensors and all(t.device == dev for t in tensors)
+
+
+def _dist_pagerank_rank(rank, n_ranks, voff, dst, iters):
+    """One rank of ``test_cuda_distributed_pagerank_two_ranks``: its shard
+    on the card, fp32 exchange staged through the host."""
+    from repro_torch.analytics.view import CSRView
+    from repro_torch.core.distributed import (make_distributed_pagerank,
+                                              partition_csr)
+    from repro_torch.launch.mesh import make_shard_mesh
+    mesh = make_shard_mesh(n_ranks, device="cuda:0")
+    view = CSRView(voff=torch.from_numpy(voff), dst=torch.from_numpy(dst),
+                   prop=torch.ones(len(dst)), n_vertices=len(voff) - 1,
+                   n_edges=len(dst))
+    run = make_distributed_pagerank(mesh, partition_csr(view, n_ranks),
+                                    iters=iters)
+    ops.reset_launches()
+    x = run()
+    return (x.cpu().numpy(), ops.launch_counts()["gather_segsum"],
+            mesh.staged_bytes)
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_pagerank_two_ranks():
+    """Two gloo ranks sharing the card: fp32 distributed PageRank equals
+    the single-store PageRank on the card within phase 11's bound (max |d|
+    under 1e-5 of the largest rank), on a vertex count that leaves a pad
+    vertex, with one ``gather_segsum`` launch a rank an iteration and the
+    exchange staged through the host."""
+    from repro_torch.analytics.view import CSRView
+    from repro_torch.launch.mesh import spawn_ranks
+    dev = _card()
+    rng = np.random.default_rng(4)
+    V, E, iters = 3001, 40000, 10
+    src = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    voff = np.searchsorted(src, np.arange(V + 1)).astype(np.int32)
+    view = CSRView(voff=torch.from_numpy(voff).to(dev),
+                   dst=torch.from_numpy(dst).to(dev),
+                   prop=torch.ones(E, device=dev), n_vertices=V, n_edges=E)
+    want = analytics.pagerank(view, iters=iters).cpu().numpy()
+    ranks = spawn_ranks(_dist_pagerank_rank, 2, voff, dst, iters,
+                        timeout=300)
+    for x, launches, staged in ranks:
+        assert x.shape == (2 * 1501,)
+        assert np.abs(x[:V] - want).max() < 1e-5 * want.max()
+        assert np.all(x[V:] == 0.0)
+        assert launches == iters
+        assert staged > 0

@@ -43,7 +43,8 @@ def test_port_files_found():
     assert (ROOT / "src" / "repro_torch" / "core" / "concurrent.py").exists()
     for rel in ("shard/__init__.py", "shard/partition.py", "shard/router.py",
                 "shard/store.py", "shard/scheduler.py", "launch/__init__.py",
-                "launch/graph_service.py", "obs/amplification.py",
+                "launch/graph_service.py", "launch/mesh.py",
+                "core/distributed.py", "obs/amplification.py",
                 "obs/export.py", "obs/trace_export.py"):
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     for name in ("common", "run", "smoke", "trajectory", "bench_update",
@@ -61,7 +62,8 @@ def test_port_files_found():
 
 
 def test_port_modules_import_without_jax():
-    """The shard layer, the service and the observability modules import
+    """The shard layer (its mesh write router too), the distributed layer,
+    the service and the observability modules import
     in a fresh interpreter in which ``jax`` and ``repro`` cannot be
     imported at all."""
     import os
@@ -83,6 +85,8 @@ def test_port_modules_import_without_jax():
         "import repro_torch.benchmarks.run, repro_torch.benchmarks.smoke\n"
         "import repro_torch.benchmarks.trajectory\n"
         "import repro_torch.examples.streaming_updates\n"
+        "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
+        "from repro_torch.shard import make_mesh_write_router\n"
         "from repro_torch.benchmarks.run import suites\n"
         "suites()\n"
         "print('ok')\n")

@@ -134,6 +134,30 @@ def test_run_batch_lays_views_end_to_end(stores):
                        torch.zeros(V))
 
 
+def test_empty_snapshot_aggregates_on_the_store_device():
+    """A snapshot with no visible run gives an empty view list that still
+    holds the store's device, so the aggregates land there (a CPU store
+    here) and equal the JAX package's."""
+    kw = dataclasses.asdict(small_store_cfg(vmax=V))
+    jg, pg = JaxGraph(small_store_cfg(**kw)), LSMGraph(StoreConfig(**kw),
+                                                       device="cpu")
+    jsnap, psnap = jg.snapshot(), pg.snapshot()
+    pviews = pan.multilevel_views(psnap)
+    assert len(pviews) == 0 and pviews.device == torch.device("cpu")
+    deg = pan.multilevel_degree(pviews, n_out=V, use_pallas=False)
+    pr = pan.multilevel_pagerank(pviews, n_out=V, iters=3, use_pallas=False)
+    assert deg.device.type == "cpu" and pr.device.type == "cpu"
+    jviews = jan.multilevel_views(jsnap)
+    np.testing.assert_array_equal(
+        _np(deg), np.asarray(jan.multilevel_degree(jviews, n_out=V,
+                                                   use_pallas=False)))
+    np.testing.assert_allclose(
+        _np(pr), np.asarray(jan.multilevel_pagerank(
+            jviews, n_out=V, iters=3, use_pallas=False)), **PR_TOL)
+    jsnap.release()
+    psnap.release()
+
+
 def _runs_case(seed):
     """Runs sorted by source id within each run: ids recurring in several
     runs, one run ending and the next beginning with the same id, an empty

@@ -1,7 +1,7 @@
 """The port's sharded store (``repro_torch.shard``) against the JAX package's.
 
 Ports of the cases of the reference's ``tests/test_shard.py`` (all but the
-mesh write router, which waits for ``core/distributed.py``), of the three
+mesh write router, which ``test_torch_distributed.py`` holds), of the three
 scheduler cases of ``tests/test_filters.py``, and of the sharded cases of
 ``test_read_pipeline.py`` (cold reads), ``test_concurrent.py`` (readers
 through a fence) and ``test_chaos.py`` (degraded mode and heal, a shard's
