@@ -137,13 +137,36 @@ line):
     shard's records, markers included, equal to the host router's
     (``bucket_edge_batches``) on the same batches, none dropped.  A rank
     that raises or times out fails the phase.
-12. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
-    launches as ``launches_distributed``), the ``nvidia-smi`` line, and the
-    last line ``{"ok": true, "device": {...}}``.
+12. An LM served on the card: Qwen2-1.5B at full width (28 layers,
+    d_model 1,536, 12/2 heads, head_dim 128, vocab 151,936, 1.54 B
+    parameters) with random bfloat16 weights from a generator on the card
+    seeded by ``--seed``, through ``repro_torch.launch.serve``'s functions,
+    eager: request A (batch 4 x prompt 512, 32 greedy decode steps,
+    ``full_attention``) and request B (batch 1 x prompt 16,384, 8 steps,
+    ``chunked_attention``), each with its prefill and decode times,
+    tokens/s, bounds and peak device memory.  Then, each failing the
+    phase: (a) with a float32 copy of the weights, ``decode_step`` after
+    ``prefill(t[:k])`` against ``prefill(t[:k+1])``'s last logits within
+    rtol = atol = 2e-2 (the reference's own tolerance); (b) request A's
+    bf16 prefill logits against the float32 copy's, relative L1 under
+    5e-2; (c) one reduced config of each family (dense, MLA + MoE,
+    dense-residual MoE, hybrid, SSM, encdec, vision prefix), prefill and
+    4 decode steps on the card against the port on the CPU, float32
+    weights and cache, within rtol = atol = 1e-3; (d) layer 0's post-RoPE q, k, v of request
+    A through ``ops.attention(use_pallas=True)``: ``flash_attention`` on
+    the tensor cores at a GQA ratio of 6, launched exactly once, held
+    against the plain version on float32-upcast inputs (phase 6's bf16
+    check) and against the model's own ``full_attention`` (relative L1
+    under 2e-2), timed beside it.  No graph-store kernel may launch in
+    the phase.
+13. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
+    launches as ``launches_distributed``, ``flash_attention``'s phase 12's
+    as ``launches_serving``), the ``nvidia-smi`` line, and the last line
+    ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 10 (each run of
-phase 9, each read of phase 8 and each suite of phase 10) and read just
-after each; each rank of phase 11 zeroes its own before its PageRank runs
+The launch counters are zeroed just before phases 3 to 10 and 12 (each
+run of phase 9, each read of phase 8 and each suite of phase 10) and read
+just after each; each rank of phase 11 zeroes its own before its PageRank runs
 and reads them after.  The port imports neither ``jax`` nor the JAX package; this
 script neither.  There is no CPU fallback: with no CUDA device the script
 fails.
@@ -170,6 +193,9 @@ INT32_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate (data sheet)
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, without
 # sparsity): the bound an attention kernel is held to.
 BF16_TC_FLOPS = 989e12
+# H100 SXM float32 rate outside the tensor cores (data sheet): the bound
+# of float32 products computed without TF32.
+FP32_FLOPS = 67e12
 SCALE = 22
 EDGEFACTOR = 16
 # Qwen2-7B's attention (src/repro/configs/qwen2_7b.py: 28 query heads, 4 kv
@@ -247,8 +273,10 @@ def device_ms(fn, kernel: str = "", iters: int = 20, by_kernel=None):
             total += t / e.count * per_call
             n += e.count
             if by_kernel is not None:
-                by_kernel[e.key[:60]] = (e.count / iters,
-                                         t / e.count * per_call / 1e3)
+                # Kernels whose names share 60 characters add up.
+                n0, ms0 = by_kernel.get(e.key[:60], (0.0, 0.0))
+                by_kernel[e.key[:60]] = (n0 + e.count / iters,
+                                         ms0 + t / e.count * per_call / 1e3)
     if n == 0:
         raise AssertionError(f"the profiler saw no kernel named {kernel!r}")
     return total / 1e3
@@ -2555,6 +2583,357 @@ def distributed_path(dev, oracle, stream, seed, batch_cap, smi="",
                 kernel=k, wall_s=wall, ranks_s=t_ranks)
 
 
+# ------------------------------------------------------------------ phase 12
+# Qwen2-1.5B (src/repro_torch/configs/qwen2_1_5b.py: 28 layers, d_model
+# 1,536, 12 query heads over 2 kv heads, head_dim 128, vocab 151,936, tied
+# embeddings, QKV bias) at full width with random bfloat16 weights.  Two
+# requests (batch, prompt, decode steps): A takes full_attention, B has
+# 16,384 keys (> 8,192) and takes chunked_attention (layers.py:171 of the
+# reference).
+SERVE_ARCH = "qwen2-1.5b"
+SERVE_REQUESTS = {"A": (4, 512, 32), "B": (1, 16384, 8)}
+# (a) decode after prefill(t[:k]) against prefill(t[:k+1]): the
+# reference's own tolerance for it (tests/test_models_smoke.py:86-88,
+# float32 weights over a bfloat16 cache).
+SERVE_DECODE_TOL = dict(rtol=2e-2, atol=2e-2)
+# (b) request A's bfloat16 prefill logits against the float32 copy's:
+# relative L1 (sum |got - want| / sum |want|).
+SERVE_BF16_L1 = 5e-2
+# (c) one reduced config of each family, prefill and 4 decode steps on the
+# card against the port on the CPU, float32 weights and a float32 cache.
+# With the reference's bfloat16 cache a decode step rounds each new
+# token's k/v (or conv input) and reads it back, and one rounding that
+# falls the other way on the card moved jamba's logits to 0.985 of this
+# limit on an NVIDIA H100 80GB HBM3 (PERF.md).
+SERVE_FAMILIES = ("qwen2-1.5b", "deepseek-v2-236b", "arctic-480b",
+                  "jamba-v0.1-52b", "mamba2-2.7b", "whisper-small",
+                  "internvl2-26b")
+SERVE_FAMILY_TOL = dict(rtol=1e-3, atol=1e-3)
+SERVE_FAMILY_STEPS = 4
+# (d) flash_attention on layer 0's q, k, v of request A against the
+# model's own full_attention, whose logits are rounded to bfloat16 (up to
+# 2^-9 of each logit): relative L1 of the outputs.
+SERVE_ATTN_L1 = 2e-2
+
+
+def _rel_l1(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).abs().sum() / want.abs().sum().clamp_min(1e-30))
+
+
+def _cache_map(fn, cache):
+    """A decode cache (``repro_torch.models``' layout) with ``fn`` applied
+    to every tensor."""
+    out = {"layers": [{k: fn(v) for k, v in c.items()}
+                      for c in cache["layers"]]}
+    if "cross" in cache:
+        out["cross"] = [{k: fn(v) for k, v in c.items()}
+                        for c in cache["cross"]]
+    return out
+
+
+def _cache_close(got, want, tol, what: str) -> float:
+    """Every tensor of cache ``got`` within ``tol`` of ``want``'s; the
+    largest share of that limit."""
+    worst = 0.0
+    for i, (cg, cw) in enumerate(zip(got["layers"] + got.get("cross", []),
+                                     want["layers"] + want.get("cross",
+                                                               []))):
+        for k in cw:
+            g, w = cg[k].float().cpu(), cw[k].float().cpu()
+            d = (g - w).abs()
+            lim = tol["atol"] + tol["rtol"] * w.abs()
+            share = float((d / lim).max()) if d.numel() else 0.0
+            if share > 1.0:
+                raise AssertionError(f"{what}: cache entry {i} {k} differs: "
+                                     f"max abs err {float(d.max()):.3e}")
+            worst = max(worst, share)
+    return worst
+
+
+def family_batch(cfg, seed, dev, prompt: int = 16, batch: int = 2):
+    """Tokens and, for a frontend, float32 stub embeddings from one NumPy
+    generator (the reference's smoke tests use float32 frontends)."""
+    import torch
+    from repro_torch.launch.serve import FRONTEND_LEN
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, (batch, prompt)).astype(np.int32)).to(dev)}
+    n_front = FRONTEND_LEN.get(cfg.frontend)
+    if n_front:
+        out["frontend"] = torch.from_numpy(rng.normal(
+            0, 1, (batch, n_front, cfg.d_model)).astype(np.float32)).to(dev)
+    return out
+
+
+def check_family_on_card(arch, dev, seed, steps=SERVE_FAMILY_STEPS,
+                         tol=SERVE_FAMILY_TOL):
+    """Phase 12 (c) for one architecture: its reduced config with float32
+    weights and cache, prefill then ``steps`` greedy decode steps on the
+    card against the same model on the CPU.  Each decode step starts both
+    from the CPU's cache before it.  Returns the largest share of the
+    limit seen (logits and caches)."""
+    import copy
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, decode_step, prefill
+    cfg = reduced_config(arch)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu", seed=seed)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = family_batch(cfg, seed, "cpu")
+    pos = serve.prompt_positions(cfg, batch)
+    s_max = pos + steps + 1
+    want, c_cpu = prefill(cfg, cpu, batch, s_max=s_max,
+                          cache_dtype=torch.float32)
+    got, c_card = prefill(cfg, card, {k: v.to(dev) for k, v in batch.items()},
+                          s_max=s_max, cache_dtype=torch.float32)
+    worst = _cache_close(c_card, c_cpu, tol, f"{arch} prefill")
+
+    def logits_share(got, want, what):
+        d = (got.cpu() - want).abs()
+        share = float((d / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        if share > 1.0:
+            raise AssertionError(f"{what}: logits differ from the CPU's: max "
+                                 f"abs err {float(d.max()):.3e}")
+        return share
+
+    worst = max(worst, logits_share(got, want, f"{arch} prefill"))
+    for i in range(steps):
+        tok = want.argmax(-1)
+        c_card = _cache_map(lambda t: t.to(dev, copy=True), c_cpu)
+        want, c_cpu = decode_step(cfg, cpu, c_cpu, tok, pos + i)
+        got, c_card = decode_step(cfg, card, c_card, tok.to(dev), pos + i)
+        worst = max(worst, logits_share(got, want, f"{arch} step {i}"),
+                    _cache_close(c_card, c_cpu, tol, f"{arch} step {i}"))
+    return worst
+
+
+def serving_bounds(cfg, model, b, p, g):
+    """The least time the card could take for a request's prefill and for
+    one decode step, in ms (the larger of bytes over the memory rate and
+    operations over the peak rate, per part): the prefill's projections
+    on bf16 tensor cores (2 x the block weights x tokens, plus the last
+    token's logits), its attention scores and sums (all key pairs, as the
+    model computes them: bf16 in full_attention, float32 without TF32 in
+    chunked_attention); a decode step reads every weight once and each
+    layer's k/v cache up to the step's position."""
+    blocks = sum(q.numel() for q in model.blocks.parameters())
+    w_bytes = sum(q.numel() * q.element_size() for q in model.parameters())
+    hq, hkv, hd, layers = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    proj = 2.0 * blocks * b * p + 2.0 * b * cfg.d_model * model.embed.shape[0]
+    attn = 4.0 * b * hq * p * p * hd * layers
+    attn_rate = FP32_FLOPS if p > 8192 else BF16_TC_FLOPS
+    pf_ms = proj / BF16_TC_FLOPS * 1e3 + attn / attn_rate * 1e3
+    pf_ms = max(pf_ms, (w_bytes + 2 * b * p * layers * hkv * hd * 2)
+                / HBM_BYTES_PER_S * 1e3)
+    kv_bytes = 2 * b * (p + g / 2) * layers * hkv * hd * 2
+    dec_ms = max((w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+                 2.0 * (blocks + model.embed.numel()) * b / BF16_TC_FLOPS
+                 * 1e3)
+    return pf_ms, dec_ms
+
+
+def flash_on_activations(cfg, model, toks, smi="", log=print):
+    """Phase 12 (d): layer 0's post-RoPE q, k and v of ``toks``' prefill,
+    laid out [B, H, S, D], through ``ops.attention(use_pallas=True,
+    causal=True, scale=hd ** -0.5)``: held against the plain version on
+    float32-upcast inputs (phase 6's bf16 check; on the card only, where
+    the kernel runs) and against the model's own ``full_attention``
+    (relative L1 under SERVE_ATTN_L1).  On the card the call must launch
+    ``flash_attention`` once, on the tensor cores, and the kernel is timed
+    beside the model's attention (not counted)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    dev = toks.device
+    on_card = dev.type == "cuda"
+    blk = model.blocks[0]
+    s = toks.shape[1]
+    scale = cfg.hd ** -0.5
+    with torch.inference_mode():
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        q, kk, v = blk.attn.qkv(blk.norm1(model.embed[toks.long()],
+                                          cfg.norm_eps), pos)
+        model_o = L.full_attention(q, kk, v, pos, pos, causal=True,
+                                   window=0, scale=scale)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
+    before = ops.launch_counts()
+    paths_before = dict(flash.flash_attention_cuda.path_launches)
+    o = ops.attention(qh, kh, vh, causal=True, scale=scale, use_pallas=True)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    took = {n: c - before[n] for n, c in ops.launch_counts().items()
+            if c != before[n]}
+    path = [n for n, c in flash.flash_attention_cuda.path_launches.items()
+            if c != paths_before[n]]
+    plain = flash.mha_ref(qh.float(), kh.float(), vh.float(), causal=True,
+                          scale=scale)
+    err, ratio, ok = bf16_check(o.float(), plain)
+    l1 = _rel_l1(o.float(), model_o.transpose(1, 2).float())
+    res = dict(shape=f"B={qh.shape[0]} Hq={qh.shape[1]} Hkv={kh.shape[1]} "
+                     f"S={s} D={qh.shape[3]} bf16 causal",
+               max_abs_err=err, limit_share=ratio, rel_l1_vs_model=l1,
+               launches=took, kernel_path=path)
+    # On the CPU ops.attention is the plain version in bfloat16.
+    if on_card and not ok:
+        raise AssertionError(f"(d) flash_attention on the model's "
+                             f"activations differs from plain: max abs err "
+                             f"{err:.3e}, {ratio:.2f} of the limit")
+    if not l1 < SERVE_ATTN_L1:
+        raise AssertionError(f"(d) flash_attention against the model's "
+                             f"full_attention: relative L1 {l1:.3e}")
+    if not on_card:
+        return res
+    if took != {"flash_attention": 1} or path != ["tensor_cores"]:
+        raise AssertionError(f"(d) ops.attention launched {took} on {path}, "
+                             f"not flash_attention once on the tensor cores")
+    with _uncounted():
+        ms = time_ms(lambda: flash.flash_attention_cuda(
+            qh, kh, vh, causal=True, scale=scale), iters=20)
+        with torch.inference_mode():
+            model_ms = time_ms(lambda: L.full_attention(
+                q, kk, v, pos, pos, causal=True, window=0, scale=scale),
+                iters=20)
+    b, hq, _, d = qh.shape
+    t_bound, by = bound(2 * (2 * qh.numel() + kh.numel() + vh.numel()),
+                        4 * b * hq * s * s * d / 2, BF16_TC_FLOPS)
+    res.update(ms=ms, model_ms=model_ms, bound_ms=t_bound, bound_by=by)
+    log(f"serving (d): flash_attention on layer 0's activations "
+        f"({res['shape']}, GQA ratio {cfg.n_heads // cfg.n_kv_heads}): "
+        f"{ms:.4f} ms (bound {t_bound:.4f} ms, {by}) against the model's "
+        f"torch-op full_attention {model_ms:.4f} ms; max abs err {err:.3e} against the float32 "
+        f"plain version ({ratio:.2f} of the scaled limit), relative L1 "
+        f"{l1:.3e} against the model's output [{smi}]")
+    return res
+
+
+def serving_path(dev, seed, smi="", reduced=False, log=print):
+    """Phase 12: Qwen2-1.5B served through ``repro_torch.launch.serve``'s
+    functions (requests A and B), then checks (a) to (d).  ``reduced``
+    runs the same on the reduced config with small requests (a rehearsal
+    on the CPU, where (c) and the launch checks are skipped)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, decode_step, prefill
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    cfg = (reduced_config if reduced else get_config)(SERVE_ARCH)
+    requests = ({"A": (4, 128, 4), "B": (1, 256, 2)} if reduced
+                else SERVE_REQUESTS)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    sync()
+    out = {"arch": SERVE_ARCH, "reduced": reduced,
+           "params": sum(q.numel() for q in model.parameters()),
+           "weight_bytes": sum(q.numel() * q.element_size()
+                               for q in model.parameters()),
+           "init_s": time.perf_counter() - t0}
+    log(f"serving: {SERVE_ARCH}{' (reduced)' if reduced else ''}, "
+        f"{out['params']} parameters ({out['weight_bytes'] / 1e9:.3f} GB "
+        f"bf16) made on {dev} in {out['init_s']:.2f} s")
+    # Untimed warm-up: cuBLAS handles, the allocator's first blocks.
+    serve.serve(cfg, model, serve.make_batch(cfg, 1, 16, seed, dev), 2,
+                s_max=18)
+    kept = {}
+    for i, (name, (b, p, g)) in enumerate(requests.items()):
+        batch = serve.make_batch(cfg, b, p, seed + 1 + i, dev)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = serve.serve(cfg, model, batch, g, s_max=p + g + 8)
+        logits = res.pop("prefill_logits")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"request {name}: non-finite logits")
+        toks = res["tokens"]
+        if toks.shape != (b, g) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise AssertionError(f"request {name}: tokens {toks.shape}, "
+                                 f"range [{toks.min()}, {toks.max()}]")
+        pf_bound, dec_bound = serving_bounds(cfg, model, b, p, g)
+        r = dict(batch=b, prompt=p, gen=g,
+                 attention="chunked" if p > 8192 else "full",
+                 prefill_ms=res["prefill_s"] * 1e3,
+                 prefill_tokens_per_s=b * p / res["prefill_s"],
+                 decode_ms_per_step=res["decode_s"] / g * 1e3,
+                 decode_tokens_per_s=b * g / res["decode_s"],
+                 prefill_bound_ms=pf_bound, decode_bound_ms=dec_bound,
+                 peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                           if on_card else None),
+                 sample=toks[0][:8].tolist())
+        out[name] = r
+        log(f"serving request {name}: batch {b} x prompt {p} "
+            f"({r['attention']} attention): prefill {r['prefill_ms']:.3f} ms "
+            f"({r['prefill_tokens_per_s']:.0f} tokens/s, bound "
+            f"{pf_bound:.3f} ms); {g} decode steps at "
+            f"{r['decode_ms_per_step']:.3f} ms a step "
+            f"({r['decode_tokens_per_s']:.1f} tokens/s, bound "
+            f"{dec_bound:.3f} ms); peak device memory "
+            f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 3)}"
+            f" GiB [{smi}]")
+        if name == "A":
+            kept = dict(batch=batch, logits=logits)
+            if on_card:
+                # The device's share of a decode step: torch.profiler over
+                # 5 more steps at the next free position (each rewrites it).
+                tok = torch.from_numpy(toks[:, -1]).to(dev)
+                by_kernel = {}
+                busy = device_ms(lambda: decode_step(
+                    cfg, model, res["cache"], tok, p + g), iters=5,
+                    by_kernel=by_kernel)
+                r.update(decode_device_ms=busy,
+                         decode_kernels=sum(n for n, _ in by_kernel.values()),
+                         decode_device_share=busy / r["decode_ms_per_step"])
+                log(f"serving request A: a decode step keeps the device "
+                    f"busy {busy:.3f} ms of {r['decode_ms_per_step']:.3f} "
+                    f"ms ({r['decode_device_share']:.3f}) over "
+                    f"{r['decode_kernels']:.0f} kernels (torch.profiler) "
+                    f"[{smi}]")
+        del res, logits
+
+    # (a) and (b): a float32 copy of the same weights.
+    f32 = copy.deepcopy(model).float()
+    toks = kept["batch"]["tokens"]
+    k = toks.shape[1] - 1
+    full, _ = prefill(cfg, f32, {"tokens": toks})
+    _, cache = prefill(cfg, f32, {"tokens": toks[:, :k]}, s_max=k + 1)
+    step, _ = decode_step(cfg, f32, cache, toks[:, k], k)
+    del cache
+    err_a = float((step - full).abs().max())
+    if not torch.allclose(step, full, **SERVE_DECODE_TOL):
+        raise AssertionError(f"(a) decode after prefill({k}) differs from "
+                             f"prefill({k + 1}): max abs err {err_a:.3e}")
+    l1_b = _rel_l1(kept["logits"].float(), full)
+    if not l1_b < SERVE_BF16_L1:
+        raise AssertionError(f"(b) bf16 prefill logits against float32: "
+                             f"relative L1 {l1_b:.3e}")
+    out["decode_vs_prefill_max_abs_err"] = err_a
+    out["bf16_vs_f32_rel_l1"] = l1_b
+    log(f"serving (a): float32 decode after prefill({k}) against "
+        f"prefill({k + 1}): max abs err {err_a:.3e} (rtol = atol = 2e-2); "
+        f"(b) request A's bf16 prefill logits against float32: relative L1 "
+        f"{l1_b:.3e} (limit {SERVE_BF16_L1})")
+    del f32, full, step
+
+    # (c): every family, card against CPU.
+    if on_card:
+        out["families"] = {a: check_family_on_card(a, dev, seed)
+                           for a in SERVE_FAMILIES}
+        log(f"serving (c): prefill + {SERVE_FAMILY_STEPS} decode steps of "
+            f"each family on the card against the CPU, largest share of "
+            f"rtol = atol = 1e-3: {out['families']}")
+
+    # (d): flash_attention on layer 0's post-RoPE q, k, v of request A.
+    out["attention"] = flash_on_activations(cfg, model, toks, smi, log)
+    return out
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -2773,6 +3152,23 @@ def main(argv=None) -> int:
           f"{DIST_RANKS} ranks: {launches['distributed']}")
     print(f"main path (distributed): {json.dumps(dst11)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv = serving_path(dev, args.seed, smi)
+    launches["serving"] = ops.launch_counts()
+    print(f"main path (serving) launches: {launches['serving']}")
+    others = {k: n for k, n in launches["serving"].items()
+              if n and k != "flash_attention"}
+    if others or launches["serving"]["flash_attention"] != 1:
+        raise AssertionError(f"the serving phase launched {others or 'no'} "
+                             f"graph-store kernels and flash_attention "
+                             f"{launches['serving']['flash_attention']} "
+                             f"times (want none and once)")
+    print(f"main path (serving): {json.dumps(srv)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"
         dev_ms = (f" ({r['device_ms']:.4f} ms device)"
@@ -2799,6 +3195,9 @@ def main(argv=None) -> int:
                | ({"launches_distributed":
                    launches["distributed"]["gather_segsum"]}
                   if r["name"] == "gather_segsum" else {})
+               | ({"launches_serving":
+                   launches["serving"]["flash_attention"]}
+                  if r["name"] == "flash_attention" else {})
                for r in rows]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,1 +1,1 @@
-"""Entry points of the port (the graph service)."""
+"""Entry points of the port (the graph service, the mesh and LM serving)."""

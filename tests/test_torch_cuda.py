@@ -31,7 +31,12 @@ snapshot's per-shard τs, launch ``merge_pairs`` exactly once a round of
 every shard's spine across the pool's threads, and reopen onto the card.
 Two gloo ranks sharing the card must give the single-store PageRank within
 1e-5 of its largest rank, through ``gather_segsum`` once a rank an
-iteration.  Every test skips where there is no card.
+iteration.  The LM serving path (``chip_smoke.py`` phase 12 at reduced
+width): each family's prefill and decode steps on the card within
+rtol = atol = 1e-3 of the CPU (float32 weights and cache), and
+``flash_attention`` on a model's layer-0 activations (Qwen2-1.5B's heads)
+launched once on the tensor cores, held as phase 12 (d) holds it.  Every
+test skips where there is no card.
 """
 from types import SimpleNamespace
 
@@ -1179,3 +1184,54 @@ def test_cuda_distributed_pagerank_two_ranks():
         assert np.all(x[V:] == 0.0)
         assert launches == iters
         assert staged > 0
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (at the repo's root) as a module: phase 12's
+    checks at reduced width."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v2-236b",
+                                  "arctic-480b", "jamba-v0.1-52b",
+                                  "mamba2-2.7b", "whisper-small",
+                                  "internvl2-26b"])
+def test_cuda_serving_family_matches_cpu(arch):
+    """Phase 12 (c): the reduced config of each family, float32 weights
+    and cache, prefill and 4 decode steps on the card within rtol = atol
+    = 1e-3 of the same model on the CPU, each step from the CPU's cache
+    before it."""
+    dev = _card()
+    smoke = _chip_smoke()
+    assert smoke.check_family_on_card(arch, dev, 0) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_on_model_activations():
+    """Phase 12 (d) at reduced width with Qwen2-1.5B's heads (12 over 2,
+    head dim 128): layer 0's q, k, v of a 2 x 256 prompt through
+    ``ops.attention(use_pallas=True)``, one launch of ``flash_attention``
+    on the tensor cores, within phase 6's bf16 bound of the plain version
+    and within relative L1 2e-2 of the model's ``full_attention``."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    dev = _card()
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), n_heads=12,
+                              n_kv_heads=2, head_dim=128)
+    model = Model(cfg, device=dev, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 256)).astype(np.int32)).to(dev)
+    ops.reset_launches()
+    res = smoke.flash_on_activations(cfg, model, toks)
+    assert res["launches"] == {"flash_attention": 1}
+    assert res["kernel_path"] == ["tensor_cores"]
+    assert res["limit_share"] <= 1.0 and res["rel_l1_vs_model"] < 2e-2

@@ -59,11 +59,16 @@ def test_port_files_found():
                 "baselines/log_append.py", "examples/quickstart.py",
                 "examples/streaming_updates.py"):
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    for rel in ("configs/__init__.py", "configs/base.py",
+                "configs/qwen2_1_5b.py", "models/__init__.py",
+                "models/layers.py", "models/moe.py", "models/ssm.py",
+                "models/model.py", "data/synthetic.py", "launch/serve.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
 
 def test_port_modules_import_without_jax():
     """The shard layer (its mesh write router too), the distributed layer,
-    the service and the observability modules import
+    the service, the observability modules and the LM serving path import
     in a fresh interpreter in which ``jax`` and ``repro`` cannot be
     imported at all."""
     import os
@@ -88,6 +93,10 @@ def test_port_modules_import_without_jax():
         "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
         "from repro_torch.shard import make_mesh_write_router\n"
         "from repro_torch.benchmarks.run import suites\n"
+        "import repro_torch.launch.serve, repro_torch.models\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "assert len(ARCH_IDS) == 10\n"
+        "assert get_config('qwen2-1.5b').n_layers == 28\n"
         "suites()\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
