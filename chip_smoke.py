@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--edges N]
 
+(``--train-replay DIR [--device D]`` runs only phase 13 (d)'s child.)
+
 Phases, each of which must pass (exit code 1 otherwise, with no result
 line):
 
@@ -159,12 +161,35 @@ line):
     check) and against the model's own ``full_attention`` (relative L1
     under 2e-2), timed beside it.  No graph-store kernel may launch in
     the phase.
-13. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
+13. An LM trained on the card: Qwen2-1.5B at full width and depth with
+    random bfloat16 weights from a generator on the card seeded by
+    ``--seed`` and remat on (its config's), 4 steps of
+    ``repro_torch.launch.train.make_train_step`` (8 x 4,096 tokens from
+    ``TokenPipeline``, 4 micro-batches, cosine schedule, AdamW), eager:
+    each step's ms and tokens/s beside the step's bound (its FLOPs on bf16
+    tensor cores), peak device memory, and the device's busy share of one
+    more, profiled step.  Then, each failing the phase: (a) step 0's loss
+    finite and in [11, 13.5], every parameter bit-equal after it (lr 0),
+    every later loss finite; (b) one micro-batch's loss and gradients with
+    the bf16 weights against a float32 copy's: loss relative difference
+    under 1e-2, relative L2 of all gradients under 1e-1; (c) one reduced
+    config of each family, float32: the loss and every gradient on the
+    card within rtol = atol = 1e-3 of the CPU's, and every parameter after
+    one AdamW update of the CPU's gradients (lr 1e-3) too; (d) in a child
+    process with deterministic algorithms, ``launch.train``'s ``main`` on
+    reduced qwen2-1.5b (bf16) for 12 steps with a checkpoint every 4, once
+    clean and once with failures at 5 and 9: 2 restarts, every restored
+    bf16 leaf bf16, the losses from step 8 and the final checkpoint equal
+    to the clean run's; (e) ``compress_int8`` of (b)'s bf16 embed
+    gradient on the card byte-equal to the CPU's, values and scales, and
+    ``decompress_int8`` within max|g|/127.  No kernel may launch in the
+    phase.
+14. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
     launches as ``launches_distributed``, ``flash_attention``'s phase 12's
     as ``launches_serving``), the ``nvidia-smi`` line, and the last line
     ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 10 and 12 (each
+The launch counters are zeroed just before phases 3 to 10, 12 and 13 (each
 run of phase 9, each read of phase 8 and each suite of phase 10) and read
 just after each; each rank of phase 11 zeroes its own before its PageRank runs
 and reads them after.  The port imports neither ``jax`` nor the JAX package; this
@@ -2934,6 +2959,400 @@ def serving_path(dev, seed, smi="", reduced=False, log=print):
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+# Qwen2-1.5B trained at full width and depth (28 layers, d_model 1,536,
+# 1,543,714,304 parameters) with random bfloat16 weights and remat on, as
+# its config sets it, at the sequence length of the train_4k shape of
+# src/repro_torch/configs/base.py:176 (4,096 tokens).  The global batch is
+# cut from train_4k's 256 to one card's share, 8 rows, in 4 micro-batches
+# of 2: 32,768 tokens a step.
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 8, 4, 4
+# (a) step 0's loss: ln 151,936 = 11.93, raised by about half the
+# logits' variance (a tied 0.02-scale embedding: standard deviation about
+# 0.8).
+TRAIN_LOSS0 = (11.0, 13.5)
+# (b) one micro-batch with the bfloat16 weights against a float32 copy:
+# the loss's relative difference and the relative L2 of all gradients.
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_L2 = 1e-2, 1e-1
+# (c) one reduced config of each family (SERVE_FAMILIES), float32: loss,
+# gradients and one AdamW update at a fixed lr, card against CPU.  The
+# update takes the CPU's gradients on both devices: Adam's first step moves
+# a parameter by lr x g / (|g| + 1e-8), so a gradient within float32 noise
+# of zero (about 1e-9 against partial sums of 1e-2) moves it by up to +-lr
+# on either device, whatever the optimizer does.  With each device's own
+# gradients jamba's update read 0.903 of this limit on an NVIDIA H100
+# 80GB HBM3 (PERF.md).
+TRAIN_FAMILY_TOL = dict(rtol=1e-3, atol=1e-3)
+TRAIN_FAMILY_LR = 1e-3
+# (d) the fault-tolerant loop through repro_torch.launch.train, reduced
+# config, bfloat16 weights, in a child process with deterministic
+# algorithms: steps, checkpoint interval, injected failures.
+REPLAY_STEPS, REPLAY_EVERY, REPLAY_FAILS = 12, 4, (5, 9)
+REPLAY_FROM = 8     # the losses from this step on must equal the clean run's
+
+
+def training_bound(cfg, model, n_seq: int, seq: int):
+    """One step's FLOPs and least time on the card.  The products: every
+    block weight matrix and the tied head (vocab x d) twice a token forward
+    and four times backward, and the blocks' forward once more for remat;
+    attention's two S x S products (all key pairs, as full_attention
+    computes them) 4 x B x Hq x S^2 x hd a layer forward, twice that
+    backward, once more for remat; all on bf16 tensor cores.  The bytes:
+    the weights read and written, the float32 moments and gradient
+    accumulators each read and written once.  -> (flops, ms, bound_by)."""
+    mats = sum(p.numel() for p in model.blocks.parameters() if p.dim() >= 2)
+    head = model.embed.numel()
+    tokens = n_seq * seq
+    proj = (6.0 * (mats + head) + 2.0 * mats) * tokens
+    attn = 16.0 * n_seq * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    n = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    ms, by = bound(2 * w_bytes + 3 * 2 * 4 * n, proj + attn, BF16_TC_FLOPS)
+    return proj + attn, ms, by
+
+
+def _share(got, want, tol, what: str) -> float:
+    """The largest share of ``|got - want| <= atol + rtol |want|`` over
+    the elements (raises past 1)."""
+    d = (got.detach().float().cpu() - want.detach().float()).abs()
+    share = float((d / (tol["atol"] + tol["rtol"] * want.detach().float()
+                        .abs())).max()) if d.numel() else 0.0
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: card differs from the CPU: max abs "
+                             f"err {float(d.max()):.3e}")
+    return share
+
+
+def check_train_family_on_card(arch, dev, seed, tol=TRAIN_FAMILY_TOL):
+    """Phase 13 (c) for one architecture: its reduced config with float32
+    weights, ``loss`` and its gradients on one batch, on the card and on
+    the CPU from the same weights; then one ``adamw_update`` at lr
+    TRAIN_FAMILY_LR on each device, of the CPU's gradients (see
+    TRAIN_FAMILY_TOL).  Returns the largest share of the limit seen (the
+    loss, every gradient, every updated parameter)."""
+    import copy
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model, loss
+    from repro_torch.optim import accumulate_grads, adamw_init, adamw_update
+    cfg = reduced_config(arch)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu", seed=seed)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = family_batch(cfg, seed, "cpu")
+    out = {}
+    for name, m, b in (("cpu", cpu, batch),
+                       ("card", card, {k: v.to(dev)
+                                       for k, v in batch.items()})):
+        out[name] = accumulate_grads(lambda m_, b_: loss(cfg, m_, b_), m, b,
+                                     1)
+    grads = out["cpu"][1]
+    adamw_update(cpu, grads, adamw_init(cpu), lr=TRAIN_FAMILY_LR)
+    adamw_update(card, {k: g.to(dev) for k, g in grads.items()},
+                 adamw_init(card), lr=TRAIN_FAMILY_LR)
+    worst = _share(out["card"][0], out["cpu"][0], tol, f"{arch} loss")
+    for k, g in out["cpu"][1].items():
+        worst = max(worst, _share(out["card"][1][k], g, tol,
+                                  f"{arch} gradient {k}"))
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        worst = max(worst, _share(q, p, tol, f"{arch} updated {k}"))
+    return worst
+
+
+def _npz_members(path):
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return [(i.filename, z.read(i.filename)) for i in z.infolist()]
+
+
+def train_replay(device: str, seed: int, workdir: str) -> dict:
+    """Phase 13 (d), in its own process (``--train-replay``): the caller
+    sets ``CUBLAS_WORKSPACE_CONFIG`` and this turns on deterministic
+    algorithms before the first CUDA op.  ``repro_torch.launch.train``'s
+    ``main`` runs reduced qwen2-1.5b (bfloat16) for REPLAY_STEPS steps with a
+    checkpoint every REPLAY_EVERY, once clean and once with failures at
+    REPLAY_FAILS; the faulty run must restart twice, every bfloat16 leaf of
+    its checkpoints must restore as bfloat16, and its losses from step
+    REPLAY_FROM and its final checkpoint (the manifest, and every member of
+    every shard, whose zip entries also record their write time) must be
+    the clean run's, byte for byte."""
+    import os
+    import torch
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    runs = {}
+    for name, fails in (("clean", ()), ("faulty", REPLAY_FAILS)):
+        argv = ["--reduced", "--steps", str(REPLAY_STEPS), "--ckpt-every",
+                str(REPLAY_EVERY), "--ckpt-dir", os.path.join(workdir, name),
+                "--device", device, "--seed", str(seed)]
+        if fails:
+            argv += ["--fail-at", *map(str, fails)]
+        runs[name] = train.main(argv)
+    clean, faulty = runs["clean"], runs["faulty"]
+    if (clean.restarts, faulty.restarts) != (0, len(REPLAY_FAILS)):
+        raise AssertionError(f"restarts {clean.restarts} and "
+                             f"{faulty.restarts}, not 0 and "
+                             f"{len(REPLAY_FAILS)}")
+    losses = {s: (clean.metrics[s], faulty.metrics[s])
+              for s in range(REPLAY_FROM, REPLAY_STEPS)}
+    if any(a != b for a, b in losses.values()):
+        raise AssertionError(f"losses after recovery differ: {losses}")
+    final = f"step_{REPLAY_STEPS}"
+    files = sorted(os.listdir(os.path.join(workdir, "clean", final)))
+    for f in files:
+        a, b = (os.path.join(workdir, run, final, f)
+                for run in ("clean", "faulty"))
+        same = (open(a, "rb").read() == open(b, "rb").read()
+                if f.endswith(".json") else
+                _npz_members(a) == _npz_members(b))
+        if not same:
+            raise AssertionError(f"final checkpoint {f} differs")
+    # Each checkpoint the faulty run restored from, into a fresh template.
+    cfg = reduced_config(TRAIN_ARCH)
+    bf16 = 0
+    for s in range(REPLAY_EVERY, REPLAY_STEPS, REPLAY_EVERY):
+        model = Model(cfg, device=device, seed=seed + 1)
+        (model, opt), _ = CheckpointManager(
+            os.path.join(workdir, "faulty")).restore(
+                (model, adamw_init(model)), step=s)
+        kinds = {p.dtype for p in model.parameters()}
+        if kinds != {torch.bfloat16}:
+            raise AssertionError(f"step {s}: restored parameters {kinds}")
+        bf16 += sum(1 for _ in model.parameters())
+    return dict(restarts=faulty.restarts, losses_from_step=REPLAY_FROM,
+                losses=[faulty.metrics[s] for s in range(REPLAY_STEPS)],
+                final_files=files, bf16_leaves_restored=bf16,
+                deterministic=torch.are_deterministic_algorithms_enabled())
+
+
+def _replay_in_child(dev, seed, log):
+    import os
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="lsmg-train-replay-")
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-replay",
+             work, "--device", str(dev), "--seed", str(seed)],
+            capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if out.returncode != 0:
+        raise AssertionError(f"(d) the replay child failed:\n"
+                             f"{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"training (d) child: {line}")
+    res = json.loads(lines[-1])
+    res["child_s"] = secs
+    return res
+
+
+def _profiled_step(step_fn, model, opt, batch, dev):
+    """One more train step under ``torch.profiler``: its wall ms (to a
+    synchronise), the device's busy ms (every kernel's and copy's self
+    time; one stream), the kernels launched and the 8 kernels (by name's
+    first 60 characters) of most device time, as (name, launches, ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt, loss = step_fn(model, opt, batch)
+        float(loss)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n, by_name = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            t = getattr(e, "self_device_time_total", None)
+            t = (e.self_cuda_time_total if t is None else t) / 1e3
+            busy += t
+            n += e.count
+            k0, t0 = by_name.get(e.key[:60], (0, 0.0))
+            by_name[e.key[:60]] = (k0 + e.count, t0 + t)
+    top = sorted(((k, c, t) for k, (c, t) in by_name.items()),
+                 key=lambda r: -r[2])[:8]
+    return model, opt, wall, busy, n, top
+
+
+def training_path(dev, seed, smi="", reduced=False, log=print):
+    """Phase 13: Qwen2-1.5B trained through ``repro_torch.launch.train``'s
+    ``make_train_step`` (TRAIN_STEPS steps from ``TokenPipeline``), then
+    checks (a) to (e).  ``reduced`` runs the same on the reduced config
+    with 8 x 64-token batches (a rehearsal on the CPU, where (a)'s loss
+    range and (c) are skipped and (e) compares the CPU with itself)."""
+    import copy
+    import math
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import Model, loss
+    from repro_torch.optim import (accumulate_grads, adamw_init,
+                                   compress_int8, decompress_int8)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    cfg = (reduced_config if reduced else get_config)(TRAIN_ARCH)
+    seq = 64 if reduced else TRAIN_SEQ
+    n_seq, n_micro = TRAIN_BATCH, TRAIN_MICRO
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    sync()
+    out = {"arch": TRAIN_ARCH, "reduced": reduced, "remat": cfg.remat,
+           "params": sum(q.numel() for q in model.parameters()),
+           "batch": n_seq, "seq": seq, "n_micro": n_micro,
+           "init_s": time.perf_counter() - t0}
+    flops, bound_ms, by = training_bound(cfg, model, n_seq, seq)
+    out.update(step_flops=flops, step_bound_ms=bound_ms, bound_by=by)
+    log(f"training: {TRAIN_ARCH}{' (reduced)' if reduced else ''}, "
+        f"{out['params']} parameters (bf16) made on {dev} in "
+        f"{out['init_s']:.2f} s; remat {cfg.remat}; {n_seq} x {seq} tokens "
+        f"a step in {n_micro} micro-batches; bound {bound_ms:.1f} ms a step "
+        f"({flops:.4e} FLOP, {by})")
+    opt = adamw_init(model)
+    step_fn = train.make_train_step(cfg, n_micro=n_micro)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=n_seq,
+                         seed=seed)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = train.to_device(pipe.next_batch(), dev)
+        sync()
+        t0 = time.perf_counter()
+        model, opt, ls = step_fn(model, opt, batch)
+        ls = float(ls)
+        sync()
+        dt = time.perf_counter() - t0
+        steps.append(dict(loss=ls, ms=dt * 1e3,
+                          tokens_per_s=n_seq * seq / dt))
+        log(f"training step {i}: loss {ls:.6f}, {dt * 1e3:.1f} ms "
+            f"({n_seq * seq / dt:.0f} tokens/s; bound {bound_ms:.1f} ms) "
+            f"[{smi}]")
+        if not math.isfinite(ls):
+            raise AssertionError(f"(a) step {i}: loss {ls}")
+        if i == 0:
+            lo, hi = TRAIN_LOSS0
+            if not reduced and not lo <= ls <= hi:
+                raise AssertionError(f"(a) step 0's loss {ls} is not in "
+                                     f"[{lo}, {hi}]")
+            moved = [n for n, p in model.named_parameters()
+                     if not torch.equal(p, before[n])]
+            if moved:
+                raise AssertionError(f"(a) step 0 (lr 0) changed "
+                                     f"{moved[:5]}")
+            del before
+    out["steps"] = steps
+    if on_card:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        batch = train.to_device(pipe.next_batch(), dev)
+        model, opt, wall, busy, n, top = _profiled_step(step_fn, model, opt,
+                                                        batch, dev)
+        out.update(profiled_ms=wall, device_busy_ms=busy,
+                   device_busy_share=busy / wall, profiled_kernels=n,
+                   top_kernels=top)
+        log(f"training: peak device memory {out['peak_gib']:.3f} GiB; a "
+            f"profiled step keeps the device busy {busy:.1f} ms of "
+            f"{wall:.1f} ms ({busy / wall:.3f}) over {n} kernels "
+            f"(torch.profiler) [{smi}]")
+        for name, count, ms in top:
+            log(f"training: profiled step, {ms:.1f} ms in {count} launches "
+                f"of {name}")
+
+    # (b) One micro-batch, bfloat16 against a float32 copy of the weights.
+    del opt, step_fn
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mb = {k: v[:n_seq // n_micro]
+          for k, v in train.to_device(pipe.next_batch(), dev).items()}
+
+    def fn(m, b):
+        return loss(cfg, m, b)
+
+    l16, g16 = accumulate_grads(fn, model, mb, 1)
+    f32 = copy.deepcopy(model).float()
+    l32, g32 = accumulate_grads(fn, f32, mb, 1)
+    del f32
+    rel_loss = abs(float(l16) - float(l32)) / abs(float(l32))
+    num = sum(float((g16[k].float() - g).double().square().sum())
+              for k, g in g32.items())
+    den = sum(float(g.double().square().sum()) for g in g32.values())
+    rel_l2 = math.sqrt(num / den)
+    del g32
+    out.update(bf16_loss=float(l16), f32_loss=float(l32),
+               bf16_loss_rel=rel_loss, bf16_grad_rel_l2=rel_l2)
+    log(f"training (b): one micro-batch ({n_seq // n_micro} x {seq}), bf16 "
+        f"loss {float(l16):.6f} against float32 {float(l32):.6f} (relative "
+        f"{rel_loss:.3e}, limit {TRAIN_BF16_LOSS_REL}); relative L2 of all "
+        f"gradients {rel_l2:.3e} (limit {TRAIN_BF16_GRAD_L2})")
+    if not rel_loss < TRAIN_BF16_LOSS_REL:
+        raise AssertionError(f"(b) bf16 loss against float32: relative "
+                             f"{rel_loss:.3e}")
+    if not rel_l2 < TRAIN_BF16_GRAD_L2:
+        raise AssertionError(f"(b) bf16 gradients against float32: "
+                             f"relative L2 {rel_l2:.3e}")
+
+    # (e) int8 compression of that micro-batch's embed gradient.
+    g = g16["embed"]
+    del g16
+    q, s = compress_int8(g)
+    q_cpu, s_cpu = compress_int8(g.cpu())
+    equal = (torch.equal(q.cpu(), q_cpu) and
+             torch.equal(s.cpu().view(torch.int32), s_cpu.view(torch.int32)))
+    back = decompress_int8(q, s, g.shape)
+    err = float((back - g.float()).abs().max())
+    lim = float(g.float().abs().max()) / 127
+    out["int8"] = dict(shape=list(g.shape), byte_equal_to_cpu=equal,
+                       decompress_max_abs_err=err, limit=lim)
+    log(f"training (e): compress_int8 of the embed gradient "
+        f"{tuple(g.shape)} on {dev} byte-equal to the CPU's: {equal}; "
+        f"decompress max abs err {err:.3e} (limit max|g|/127 = {lim:.3e})")
+    if not equal:
+        raise AssertionError("(e) compress_int8 on the card differs from "
+                             "the CPU's")
+    if not err <= lim:
+        raise AssertionError(f"(e) decompress_int8 error {err:.3e} over "
+                             f"{lim:.3e}")
+    del g, q, s, back, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) Every family: loss, gradients and one update, card against CPU.
+    if on_card:
+        out["families"] = {a: check_train_family_on_card(a, dev, seed)
+                           for a in SERVE_FAMILIES}
+        log(f"training (c): loss, gradients and one AdamW update (lr "
+            f"{TRAIN_FAMILY_LR}, the CPU's gradients) of each family on the "
+            f"card against the CPU, largest share of rtol = atol = 1e-3: "
+            f"{out['families']}")
+
+    # (d) The fault-tolerant loop, deterministic, in a child process.
+    out["replay"] = _replay_in_child(dev, seed, log)
+    log(f"training (d): launch.train with failures at {REPLAY_FAILS}: "
+        f"restarts {out['replay']['restarts']}, losses from step "
+        f"{REPLAY_FROM} and the final checkpoint equal to the clean run's; "
+        f"{out['replay']['bf16_leaves_restored']} bf16 leaves restored as "
+        f"bf16 (child {out['replay']['child_s']:.1f} s)")
+    return out
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -2949,7 +3368,15 @@ def main(argv=None) -> int:
     ap.add_argument("--edges", type=int, default=EDGEFACTOR << SCALE,
                     help="distinct edges to stream (cut only if the time "
                          "limit forces it)")
+    ap.add_argument("--train-replay", metavar="DIR",
+                    help="run phase 13 (d)'s child in DIR and stop")
+    ap.add_argument("--device", default="cuda",
+                    help="the device of --train-replay")
     args = ap.parse_args(argv)
+    if args.train_replay:
+        print(json.dumps(train_replay(args.device, args.seed,
+                                      args.train_replay)))
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -3168,6 +3595,20 @@ def main(argv=None) -> int:
                              f"{launches['serving']['flash_attention']} "
                              f"times (want none and once)")
     print(f"main path (serving): {json.dumps(srv)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trn = training_path(dev, args.seed, smi)
+    launches["training"] = ops.launch_counts()
+    print(f"main path (training) launches: {launches['training']}")
+    if any(launches["training"].values()):
+        raise AssertionError(f"the training phase launched "
+                             f"{launches['training']} (want none)")
+    print(f"main path (training): {json.dumps(trn)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"

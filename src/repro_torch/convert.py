@@ -4,10 +4,11 @@ The port's NamedTuples have the reference's fields, dtypes and padding, so
 a conversion is field by field: ``*_to_torch`` takes anything whose fields
 ``np.asarray`` can read (jax arrays, numpy arrays) and returns the port's
 tensors on ``device``; ``to_numpy`` goes back.  Presence words are uint32
-in the reference and int32 bit patterns in the port.  An LM's weights and
-decode cache cross by name (``lm_params_to_torch``, ``lm_cache_to_torch``,
-``lm_cache_to_numpy``).  Nothing here imports the JAX package: the caller
-hands over arrays.
+in the reference and int32 bit patterns in the port.  An LM's weights,
+gradients, AdamW state and decode cache cross by name
+(``lm_params_to_torch``, ``lm_params_to_numpy``, ``adamw_state_to_torch``,
+``lm_cache_to_torch``, ``lm_cache_to_numpy``).  Nothing here imports the
+JAX package: the caller hands over arrays.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from .analytics.view import CSRView, RunView
 from .core.index import IndexState
 from .core.types import CSRRunArrays, EdgeBatch, MemGraphState
 from .models.model import plan_layers
+from .optim.adamw import AdamWState
 
 _DTYPES = {np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
@@ -111,14 +113,9 @@ def _block_index(cfg):
     return lambda j, p: len(prefix) + p * len(period) + j
 
 
-def lm_params_to_torch(cfg, params, model) -> None:
-    """Load the reference's parameter pytree (``init_params``'s, arrays
-    NumPy can read) into ``model``, a ``repro_torch.models.Model`` of the
-    same config, in place.  ``prefix.i`` is ``blocks.i``; ``period``,
-    ``enc`` and ``cross`` are stacked along a leading axis in the
-    reference and unstacked here.  ``[d_in, d_out]`` weights keep their
-    layout.  Every parameter of either side must find its partner, with
-    the same shape and dtype."""
+def _unstack(cfg, params) -> dict:
+    """The reference's parameter pytree (or one of its shape, such as an
+    AdamW moment) as a flat dict by the port's parameter names."""
     block = _block_index(cfg)
     flat = {}
     for path, arr in _flatten(params):
@@ -134,7 +131,83 @@ def lm_params_to_torch(cfg, params, model) -> None:
             flat[f"blocks.{rest}"] = arr
         else:
             flat[path] = arr
-    _load_flat(model, flat)
+    return flat
+
+
+def lm_params_to_torch(cfg, params, model) -> None:
+    """Load the reference's parameter pytree (``init_params``'s, arrays
+    NumPy can read) into ``model``, a ``repro_torch.models.Model`` of the
+    same config, in place.  ``prefix.i`` is ``blocks.i``; ``period``,
+    ``enc`` and ``cross`` are stacked along a leading axis in the
+    reference and unstacked here.  ``[d_in, d_out]`` weights keep their
+    layout.  Every parameter of either side must find its partner, with
+    the same shape and dtype."""
+    _load_flat(model, _unstack(cfg, params))
+
+
+def lm_params_to_numpy(cfg, model, values=None) -> dict:
+    """The inverse of ``lm_params_to_torch``: ``model``'s parameters, or
+    ``values`` (a dict by parameter name, such as gradients; ``None`` for
+    a parameter is zeros of its shape, as ``jax.grad`` gives an unused
+    one), as the reference's pytree of NumPy arrays, the period layers,
+    the encoder and the cross attentions restacked.  bfloat16 comes back as
+    float32 (exactly)."""
+    prefix, period, n_periods = plan_layers(cfg)
+    named = dict(model.named_parameters())
+    if values is None:
+        values = named
+
+    def leaf(name):
+        v = values.get(name)
+        if v is None:
+            return np.zeros(tuple(named[name].shape), np.float32)
+        return to_numpy(v)
+
+    def put(tree, rest, arr):
+        *dirs, last = rest.split(".")
+        for d in dirs:
+            tree = tree.setdefault(d, {})
+        tree[last] = arr
+
+    out = {"prefix": [{} for _ in prefix], "period": [{} for _ in period]}
+    stacked = {}   # (tree, rest) -> [arrays in stack order]
+    for name in named:
+        head, _, rest = name.partition(".")
+        if head == "blocks":
+            i, _, rest = rest.partition(".")
+            i = int(i)
+            if i < len(prefix):
+                put(out["prefix"][i], rest, leaf(name))
+                continue
+            j = (i - len(prefix)) % len(period)
+            stacked.setdefault(("period", j, rest), []).append(leaf(name))
+        elif head in ("enc", "cross"):
+            _, _, rest = rest.partition(".")
+            stacked.setdefault((head, None, rest), []).append(leaf(name))
+        else:
+            put(out, name, leaf(name))
+    for (head, j, rest), arrs in stacked.items():
+        tree = (out["period"][j] if head == "period"
+                else out.setdefault(head, {}))
+        put(tree, rest, np.stack(arrs))
+    return out
+
+
+def lm_tree_to_torch(cfg, tree, device) -> dict:
+    """A pytree in the reference's parameter layout (gradients, a moment)
+    as a dict of tensors on ``device`` by the port's parameter names."""
+    return {name: array_to_torch(a, device)
+            for name, a in _unstack(cfg, tree).items()}
+
+
+def adamw_state_to_torch(cfg, opt, model) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, and moments ``m``, ``v`` in
+    its parameter pytree's layout) as the port's, on ``model``'s device."""
+    dev = model.embed.device
+    return AdamWState(step=torch.tensor(int(np.asarray(opt.step)),
+                                        dtype=torch.int32, device=dev),
+                      m=lm_tree_to_torch(cfg, opt.m, dev),
+                      v=lm_tree_to_torch(cfg, opt.v, dev))
 
 
 def lm_module_params_to_torch(params, module) -> None:

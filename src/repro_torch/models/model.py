@@ -13,14 +13,23 @@ embeddings prepended to the tokens).
 
 Public surface:
   Model(cfg, dtype=..., device=..., seed=...)     -> weights, random
+  loss(cfg, model, batch)                          -> scalar CE (+ MoE aux)
   init_cache(cfg, b, s_max)                        -> cache
   prefill(cfg, model, batch, s_max)                -> (last logits, cache)
   decode_step(cfg, model, cache, token, pos)       -> (logits, cache)
-``batch`` = {"tokens": (B,S) int [, "frontend": (B,Sf,d)]}.  The cache is
+``batch`` = {"tokens": (B,S) int [, "frontend": (B,Sf,d), "targets": (B,S)
+int]}.  The cache is
 ``{"layers": [one dict a layer, in plan order], "cross": [one {k, v} a
 decoder layer] (encdec only)}``; ``decode_step`` writes it in place and
-returns it.  Both run under ``torch.inference_mode``.  Training's ``loss``
-is not ported yet.
+returns it.  Both run under ``torch.inference_mode``.  ``loss`` is
+differentiated by autograd (``loss(...).backward()`` or
+``repro_torch.optim.accumulate_grads``); with ``cfg.remat`` each layer of
+the period and of the encoder is recomputed in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference's nested
+``jax.checkpoint`` does, and ``remat_policy="dots"`` keeps the outputs of
+the unbatched matrix products (the reference's
+``dots_with_no_batch_dims_saveable``).  Remat changes no bit of the
+gradients.
 """
 from __future__ import annotations
 
@@ -28,11 +37,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
 from . import layers as L
-from .moe import MoE
+from .moe import MoE, aux_load_balance_loss
 from .ssm import SSM, init_ssm_state, ssd_train, ssm_decode
 
 Cache = Dict[str, Any]
@@ -153,13 +163,39 @@ class Model(nn.Module):
 # Forward passes
 # --------------------------------------------------------------------------
 
+def _dots_saveable():
+    """Selective checkpointing that keeps the outputs of the unbatched
+    matrix products (every ``Linear``) and recomputes the rest."""
+    mm = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in mm
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``cfg.remat``
+    and autograd is recording."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    context = (_dots_saveable if cfg.remat_policy == "dots"
+               else ckpt.noop_context_fn)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=context)
+
+
+def _enc_block(cfg: ModelConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    x = x + blk.attn(blk.norm1(x, cfg.norm_eps), causal=False)
+    return blk.ffn(x, cfg.norm_eps)
+
+
 def _encode(cfg: ModelConfig, model: Model,
             frames: torch.Tensor) -> torch.Tensor:
     """Encoder trunk over stub frame embeddings (bidirectional)."""
     x = frames
     for blk in model.enc:
-        x = x + blk.attn(blk.norm1(x, cfg.norm_eps), causal=False)
-        x = blk.ffn(x, cfg.norm_eps)
+        x = _remat(cfg, _enc_block, cfg, blk, x)
     return model.enc_norm(x, cfg.norm_eps)
 
 
@@ -180,6 +216,79 @@ def _logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# --------------------------------------------------------------------------
+# Training: the loss
+# --------------------------------------------------------------------------
+
+def _block_train(cfg: ModelConfig, blk: Block, x: torch.Tensor,
+                 aux: torch.Tensor, cross: Optional[L.GQA] = None,
+                 memory: Optional[torch.Tensor] = None):
+    """One layer of the training forward pass; MoE layers add their
+    load-balance loss to ``aux``."""
+    eps = cfg.norm_eps
+    h = blk.norm1(x, eps)
+    if blk.ldef.mixer == "ssm":
+        x = x + ssd_train(blk.ssm, h, cfg)
+    else:
+        x = x + blk.attn(h)
+    if cross is not None:
+        kv = L.cross_kv(cross, memory, cfg)
+        x = x + L.cross_attention(cross, blk.norm2(x, eps), kv, cfg)
+    if blk.ldef.ffn == "mlp":
+        x = x + blk.mlp(blk.norm2(x, eps))
+    elif blk.ldef.ffn == "moe":
+        h2 = blk.norm2(x, eps)
+        x = x + blk.moe(h2)
+        aux = aux + aux_load_balance_loss(blk.moe, h2, cfg)
+    return x, aux
+
+
+def _backbone_train(cfg: ModelConfig, model: Model, x: torch.Tensor,
+                    memory: Optional[torch.Tensor] = None):
+    """The decoder trunk: the prefix layers as they are, the period's
+    under ``_remat``.  -> (final-normed x, summed MoE aux loss)."""
+    n_prefix = len(plan_layers(cfg)[0])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(model.blocks):
+        cross = model.cross[i] if cfg.family == "encdec" else None
+        if i < n_prefix:
+            x, aux = _block_train(cfg, blk, x, aux, cross, memory)
+        else:
+            x, aux = _remat(cfg, _block_train, cfg, blk, x, aux, cross,
+                            memory)
+    return model.final_norm(x, cfg.norm_eps), aux
+
+
+def loss(cfg: ModelConfig, model: Model,
+         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy over every position but the last of
+    each row (also when ``targets`` are given, as the reference masks),
+    plus 0.01 x the summed MoE load-balance loss; float32 scalar.  The
+    logits' max is taken from a detached copy (the reference's
+    ``stop_gradient``), then ``nll = logsumexp - logit[target]``."""
+    tokens = batch["tokens"]
+    frontend = batch.get("frontend")
+    x = _embed_tokens(cfg, model, tokens, frontend)
+    memory = (_encode(cfg, model, frontend) if cfg.family == "encdec"
+              else None)
+    x, aux = _backbone_train(cfg, model, x, memory)
+    n_front = (0 if frontend is None or cfg.family == "encdec"
+               else frontend.shape[1])
+    # The bf16 logits are not kept: only their float32 copy is read.
+    lf = _logits(cfg, model, x[:, n_front:, :]).float()
+    tgt = batch.get("targets")
+    if tgt is None:
+        tgt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    mx = lf.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - mx).sum(-1)) + mx[..., 0]
+    tgt_logit = torch.gather(lf, -1, tgt.long()[..., None])[..., 0]
+    nll = lse - tgt_logit
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + 0.01 * aux
 
 
 # --------------------------------------------------------------------------

@@ -114,8 +114,8 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def aux_load_balance_loss(p: MoE, x: torch.Tensor,
                           cfg: ModelConfig) -> torch.Tensor:
-    """Switch-style load-balance auxiliary (training's; kept so the module
-    is whole)."""
+    """Switch-style load-balance auxiliary, which ``model.loss`` adds for
+    every MoE layer."""
     m = cfg.moe
     d = x.shape[-1]
     _, ids, pr = p.route(x.reshape(-1, d))

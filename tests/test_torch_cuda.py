@@ -35,8 +35,14 @@ iteration.  The LM serving path (``chip_smoke.py`` phase 12 at reduced
 width): each family's prefill and decode steps on the card within
 rtol = atol = 1e-3 of the CPU (float32 weights and cache), and
 ``flash_attention`` on a model's layer-0 activations (Qwen2-1.5B's heads)
-launched once on the tensor cores, held as phase 12 (d) holds it.  Every
-test skips where there is no card.
+launched once on the tensor cores, held as phase 12 (d) holds it.  The
+LM training path (phase 13 at reduced width): each family's loss,
+gradients and one AdamW update on the card within rtol = atol = 1e-3 of
+the CPU (float32); three train steps of reduced qwen2-1.5b on the card
+against the CPU (losses within rtol 1e-5, parameters within rtol = atol =
+1e-3); ``compress_int8`` byte-equal to the CPU's; a card model and its
+AdamW state through a checkpoint and back, bit for bit.  Every test skips
+where there is no card.
 """
 from types import SimpleNamespace
 
@@ -1235,3 +1241,98 @@ def test_cuda_flash_attention_on_model_activations():
     assert res["launches"] == {"flash_attention": 1}
     assert res["kernel_path"] == ["tensor_cores"]
     assert res["limit_share"] <= 1.0 and res["rel_l1_vs_model"] < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v2-236b",
+                                  "arctic-480b", "jamba-v0.1-52b",
+                                  "mamba2-2.7b", "whisper-small",
+                                  "internvl2-26b"])
+def test_cuda_train_family_matches_cpu(arch):
+    """Phase 13 (c): the reduced config of each family, float32 weights,
+    loss, gradients and one AdamW update (lr 1e-3, of the CPU's gradients)
+    on the card within rtol = atol = 1e-3 of the same model on the CPU."""
+    dev = _card()
+    smoke = _chip_smoke()
+    assert smoke.check_train_family_on_card(arch, dev, 0) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu():
+    """Three ``make_train_step`` steps (2 micro-batches, base lr 1e-2: lr
+    0, 1e-4 and 2e-4) of reduced qwen2-1.5b in float32 from
+    ``TokenPipeline``, on the card and on the CPU from the same weights:
+    the losses within rtol 1e-5; the parameters within phase 13 (c)'s
+    rtol = atol = 1e-3, since each device takes Adam's steps from its own
+    gradients, and a gradient within float32 noise of zero can move a
+    parameter by up to +-lr a step on either."""
+    import copy
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    dev = _card()
+    cfg = reduced_config("qwen2-1.5b")
+    cpu = Model(cfg, dtype=torch.float32, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to(dev)
+    runs = {}
+    for name, m, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        step = train.make_train_step(cfg, n_micro=2, base_lr=1e-2)
+        opt = adamw_init(m)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                             seed=0)
+        losses = []
+        for _ in range(3):
+            m, opt, loss = step(m, opt, train.to_device(pipe.next_batch(),
+                                                        d))
+            losses.append(float(loss))
+        runs[name] = losses
+    np.testing.assert_allclose(runs["card"], runs["cpu"], rtol=1e-5)
+    for (n, p), q in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(q.cpu(), p.detach(), rtol=1e-3,
+                                   atol=1e-3, msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((1000,), torch.float32),
+                                         ((512, 1536), torch.bfloat16),
+                                         ((3, 7), torch.float32)])
+def test_cuda_compress_int8_byte_equal(shape, dtype):
+    """Phase 13 (e): the int8 values and the scales the card computes are
+    the CPU's, bit for bit (its divisions are by float32 tensors, not the
+    Python scalars CUDA turns into products by a reciprocal)."""
+    from repro_torch.optim import compress_int8, decompress_int8
+    dev = _card()
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.02, shape).astype(np.float32)).to(dtype)
+    q, s = compress_int8(g.to(dev))
+    qc, sc = compress_int8(g)
+    assert torch.equal(q.cpu(), qc)
+    assert torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32))
+    back = decompress_int8(q, s, shape).cpu()
+    assert torch.equal(back, decompress_int8(qc, sc, shape))
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_model_round_trip(tmp_path):
+    """A bfloat16 model on the card and its AdamW state saved and restored
+    into a fresh card template: every tensor bit for bit, on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    dev = _card()
+    cfg = reduced_config("jamba-v0.1-52b")
+    model = Model(cfg, device=dev, seed=0)
+    opt = adamw_init(model)
+    opt.v["embed"].uniform_()
+    cm = CheckpointManager(str(tmp_path))
+    cm.save_async(3, (model, opt))
+    cm.wait()
+    fresh = Model(cfg, device=dev, seed=1)
+    (got, got_opt), _ = cm.restore((fresh, adamw_init(fresh)))
+    for (n, p), q in zip(model.named_parameters(), got.parameters()):
+        assert q.device.type == "cuda" and q.dtype == p.dtype
+        assert torch.equal(p, q), n
+    assert torch.equal(got_opt.v["embed"], opt.v["embed"])

@@ -64,12 +64,20 @@ def test_port_files_found():
                 "models/layers.py", "models/moe.py", "models/ssm.py",
                 "models/model.py", "data/synthetic.py", "launch/serve.py"):
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    for rel in ("optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+                "optim/accumulation.py", "optim/grad_compress.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "checkpoint/elastic.py", "runtime/__init__.py",
+                "runtime/fault.py", "runtime/monitor.py",
+                "data/pipeline.py", "launch/train.py",
+                "examples/train_lm.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
 
 def test_port_modules_import_without_jax():
     """The shard layer (its mesh write router too), the distributed layer,
-    the service, the observability modules and the LM serving path import
-    in a fresh interpreter in which ``jax`` and ``repro`` cannot be
+    the service, the observability modules and the LM serving and training
+    paths import in a fresh interpreter in which ``jax`` and ``repro`` cannot be
     imported at all."""
     import os
     import subprocess
@@ -94,6 +102,10 @@ def test_port_modules_import_without_jax():
         "from repro_torch.shard import make_mesh_write_router\n"
         "from repro_torch.benchmarks.run import suites\n"
         "import repro_torch.launch.serve, repro_torch.models\n"
+        "import repro_torch.optim, repro_torch.checkpoint\n"
+        "import repro_torch.runtime, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.train, repro_torch.examples.train_lm\n"
+        "from repro_torch.models import loss\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "assert len(ARCH_IDS) == 10\n"
         "assert get_config('qwen2-1.5b').n_layers == 28\n"
