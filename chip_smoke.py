@@ -184,12 +184,26 @@ line):
     gradient on the card byte-equal to the CPU's, values and scales, and
     ``decompress_int8`` within max|g|/127.  No kernel may launch in the
     phase.
-14. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
+14. The dry run against the card (``repro_torch.launch.dryrun`` on its
+    ``card`` mesh: fake CUDA tensors, no mesh): (a) phase 13's step and
+    (b) phase 12's request A (its prefill into a 552-deep cache, then one
+    decode step) traced, then run for real from a reset peak, once with
+    no dispatch mode and once under ``FlopCounterMode``'s counting mode:
+    the traced peak must lie within ``dryrun.PEAK_TOL`` of the plain
+    step's ``torch.cuda.max_memory_allocated`` above what was allocated
+    before the step's inputs, and the traced FLOPs equal the counted
+    step's (whose peak is printed beside); (c) (a)'s three
+    roofline terms beside phase 13's measured step and its hand bound
+    (``training_bound``); (d) qwen2-1.5b x train_4k and deepseek-v2-236b x
+    prefill_32k on the single-pod mesh and the graph dry run, traced on
+    the host's CPU in child processes started at the phase's start, each
+    ``ok``, each wall time printed.  No kernel may launch in the phase.
+15. A ``{"kernels": [...]}`` line (``gather_segsum``'s row adds phase 11's
     launches as ``launches_distributed``, ``flash_attention``'s phase 12's
     as ``launches_serving``), the ``nvidia-smi`` line, and the last line
     ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before phases 3 to 10, 12 and 13 (each
+The launch counters are zeroed just before phases 3 to 10, 12 to 14 (each
 run of phase 9, each read of phase 8 and each suite of phase 10) and read
 just after each; each rank of phase 11 zeroes its own before its PageRank runs
 and reads them after.  The port imports neither ``jax`` nor the JAX package; this
@@ -3353,6 +3367,270 @@ def training_path(dev, seed, smi="", reduced=False, log=print):
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+# The dry run (src/repro_torch/launch/dryrun.py) held against the card.  Its
+# "card" mesh is one H100 and no mesh: the step traced on fake CUDA tensors
+# (FLOPs by FlopCounterMode's formulas, the peak by MemTracker).  (a) phase
+# 13's training step, (b) phase 12's request A (prefill, then one decode
+# step), each traced and then run for real from a reset peak twice: with no
+# dispatch mode (its peak held to the trace's) and under FlopCounterMode's
+# counting mode (its FLOPs held to the trace's, its peak printed); (c) the
+# roofline terms of (a)'s trace beside phase 13's step and its hand bound;
+# (d) single-pod cells traced on the host's CPU in child processes, which
+# start first and run while (a) to (c) do.
+DRYRUN_HOST_CELLS = (("qwen2-1.5b", "train_4k"),
+                     ("deepseek-v2-236b", "prefill_32k"))
+DRYRUN_CHILD_TIMEOUT = 240
+
+
+def _host_dryruns():
+    """Start (d)'s children: each cell, then the graph dry run, in a
+    process of its own on the host's CPU, writing into a new temporary
+    directory.  -> (the directory, [(name, process, start)])."""
+    import os
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="dryrun-")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="2")
+    cmds = [(f"{arch} x {shape} x single",
+             ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+              shape, "--mesh", "single", "--no-micro4"])
+            for arch, shape in DRYRUN_HOST_CELLS]
+    cmds.append(("lsmgraph-service x pagerank x single",
+                 ["-m", "repro_torch.launch.graph_dryrun", "--mesh",
+                  "single"]))
+    children = []
+    for i, (name, cmd) in enumerate(cmds):
+        with open(Path(out_dir) / f"child{i}.log", "w") as log:
+            children.append((name, subprocess.Popen(
+                [sys.executable] + cmd + ["--device", "cpu", "--out",
+                                          out_dir],
+                env=env, stdout=log, stderr=subprocess.STDOUT),
+                time.perf_counter()))
+    return out_dir, children
+
+
+def _measured_step(dev, fn, count: bool = True):
+    """``fn()`` on the card from a reset peak, under FlopCounterMode's own
+    counting mode when ``count``: -> (its result, FLOPs or None, the peak
+    allocated bytes).  The counting mode runs without FlopCounterMode's
+    module tracker, whose backward hooks hold tensors to the step's end
+    (a whole FlopCounterMode over phase 13's step ran out of the card's
+    80 GB)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counter = FlopCounterMode(display=False)
+    with _FlopCounterMode(counter) if count else contextlib.nullcontext():
+        out = fn()
+    torch.cuda.synchronize(dev)
+    return (out, counter.get_total_flops() if count else None,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def _held(name, trace, plain_peak, flops, counted_peak, log, smi,
+          tol):
+    """(a)/(b): the trace's peak within ``tol`` of the plain step's, and
+    its FLOPs equal the counted step's.  ``counted_peak`` is the counted
+    step's peak (reported).  -> a row."""
+    rel = (trace.peak - plain_peak) / plain_peak
+    row = dict(what=name, trace_flops=trace.flops, measured_flops=flops,
+               trace_peak_gib=trace.peak / 2**30,
+               measured_peak_gib=plain_peak / 2**30, peak_rel_err=rel,
+               counted_peak_gib=counted_peak / 2**30)
+    log(f"dry run (card) {name}: FLOPs traced {trace.flops:.6e}, counted "
+        f"{flops:.6e} ({'equal' if trace.flops == flops else 'DIFFER'}); "
+        f"peak traced {trace.peak / 2**30:.3f} GiB, measured with no "
+        f"dispatch mode {plain_peak / 2**30:.3f} GiB (relative {rel:+.4f}, "
+        f"limit {tol}); the counted step's "
+        f"{counted_peak / 2**30:.3f} GiB [{smi}]")
+    if trace.flops != flops:
+        raise AssertionError(f"phase 14 {name}: traced FLOPs {trace.flops} "
+                             f"!= measured {flops}")
+    if not abs(rel) <= tol:
+        raise AssertionError(f"phase 14 {name}: traced peak "
+                             f"{trace.peak} against measured {plain_peak}")
+    return row
+
+
+def dryrun_path(dev, seed, step_ms=None, smi="", log=print):
+    """Phase 14: (a) to (d) above.  ``step_ms`` is phase 13's measured
+    step (its last), printed beside (c)'s bounds.  (d)'s children start
+    first and run on the host's cores while (a) to (c) run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import dryrun, serve, train
+    from repro_torch.models import Model, decode_step, prefill
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline import HW, analyze_trace
+    t_phase = time.perf_counter()
+    host = _host_dryruns()
+    out_dir, children = host
+    out = {}
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        # (a) Phase 13's step: 8 x 4,096 tokens in 4 micro-batches.
+        tshape = ShapeConfig("card_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        t0 = time.perf_counter()
+        tr_a, _ = dryrun.trace_cell(TRAIN_ARCH, tshape, None, dev,
+                                    n_micro=TRAIN_MICRO)
+        trace_a_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model = Model(cfg, device=dev, seed=seed)
+        opt = adamw_init(model)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed)
+        batch = {k: v.to(torch.int32) for k, v in
+                 train.to_device(pipe.next_batch(), dev).items()}
+        step = train.make_train_step(cfg, n_micro=TRAIN_MICRO)
+        # Step 0 (lr 0) with no dispatch mode, then step 1 counted.
+        _, _, plain = _measured_step(dev, lambda: step(model, opt, batch),
+                                     count=False)
+        t0 = time.perf_counter()
+        _, flops, peak = _measured_step(dev, lambda: step(model, opt, batch))
+        out["train"] = _held("(a) phase 13's step", tr_a, plain - base,
+                             flops, peak - base, log, smi, dryrun.PEAK_TOL)
+        out["train"].update(trace_s=trace_a_s,
+                            counted_step_s=time.perf_counter() - t0)
+        del model, opt, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) Phase 12's request A: prefill 4 x 512 into a 552-deep cache,
+        # then one decode step.
+        b, p, g = SERVE_REQUESTS["A"]
+        s_max = p + g + 8
+        pshape = ShapeConfig("card_prefill", p, b, "prefill")
+        dshape = ShapeConfig("card_decode", s_max, b, "decode")
+        tr_p, _ = dryrun.trace_cell(SERVE_ARCH, pshape, None, dev,
+                                    s_max=s_max)
+        tr_d, _ = dryrun.trace_cell(SERVE_ARCH, dshape, None, dev)
+        base = torch.cuda.memory_allocated(dev)
+        model = Model(get_config(SERVE_ARCH), device=dev, seed=seed)
+        scfg = get_config(SERVE_ARCH)
+        req = serve.make_batch(scfg, b, p, seed + 1, dev)
+        (logits, cache), _, plain = _measured_step(
+            dev, lambda: prefill(scfg, model, req, s_max=s_max),
+            count=False)
+        del logits, cache
+        (logits, cache), flops, peak = _measured_step(
+            dev, lambda: prefill(scfg, model, req, s_max=s_max))
+        out["prefill"] = _held("(b) request A's prefill", tr_p,
+                               plain - base, flops, peak - base, log, smi,
+                               dryrun.PEAK_TOL)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        del logits, req
+        gc.collect()
+        _, _, plain = _measured_step(
+            dev, lambda: decode_step(scfg, model, cache, tok, p),
+            count=False)
+        _, flops, peak = _measured_step(
+            dev, lambda: decode_step(scfg, model, cache, tok, p))
+        out["decode"] = _held("(b) request A's decode step", tr_d,
+                              plain - base, flops, peak - base, log, smi,
+                              dryrun.PEAK_TOL)
+        del model, cache, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) The roofline terms of (a)'s trace against the hand bound.
+        rep = analyze_trace(tr_a, arch=TRAIN_ARCH, shape_cfg=tshape,
+                            cfg=cfg, mesh_name="card", chips=1,
+                            hw=HW.for_mesh({}))
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            hand_flops, hand_ms, hand_by = training_bound(
+                cfg, Model(cfg, device=dev, seed=seed), TRAIN_BATCH,
+                TRAIN_SEQ)
+        # The trace's bytes term is an operand volume (every op's operands
+        # and results at their logical sizes), not HBM traffic: it is
+        # printed, and left out of the bound.
+        out["bounds"] = dict(
+            t_compute_ms=rep.t_compute * 1e3,
+            t_collective_ms=rep.t_collective * 1e3,
+            operand_bytes=rep.bytes_per_device,
+            operand_volume_ms=rep.t_memory * 1e3,
+            trace_flops=rep.flops_per_device, hand_flops=hand_flops,
+            hand_bound_ms=hand_ms, hand_bound_by=hand_by,
+            measured_step_ms=step_ms, model_flops=rep.model_flops)
+        bound_ms = max(rep.t_compute, rep.t_collective) * 1e3
+        # Non-reentrant checkpointing stops each layer's recompute once the
+        # tensors its backward needs exist: the last product (the MLP's
+        # down projection), which the hand bound counts, is not redone.
+        skipped = (2.0 * cfg.d_model * cfg.d_ff * cfg.n_layers * TRAIN_BATCH
+                   * TRAIN_SEQ)
+        out["bounds"]["remat_skipped_flops"] = skipped
+        why = ("they agree" if abs(bound_ms - hand_ms) <= 0.05 * hand_ms
+               else "they differ")
+        why += (f": the FLOPs differ by "
+                f"{rep.flops_per_device / hand_flops - 1:+.4f}, "
+                f"{(rep.flops_per_device + skipped) / hand_flops - 1:+.2e} "
+                f"with the {skipped:.4e} FLOP of down projections that "
+                f"remat's early stop does not recompute")
+        log(f"dry run (card) (c) phase 13's step: t_compute "
+            f"{rep.t_compute * 1e3:.1f} ms, t_collective "
+            f"{rep.t_collective * 1e3:.1f} ms: bound {bound_ms:.1f} ms "
+            f"against the hand bound {hand_ms:.1f} ms ({hand_by}) and the "
+            f"measured step "
+            f"{'-' if step_ms is None else f'{step_ms:.1f}'} ms: {why}; "
+            f"the operand volume {rep.bytes_per_device:.4e} B (every op's "
+            f"operands and results at their logical sizes, not HBM "
+            f"traffic) over HBM's rate is {rep.t_memory * 1e3:.1f} ms, no "
+            f"bound [{smi}]")
+
+        # (d) The single-pod cells on the host.
+        out["host_cells"] = {}
+        for i, (name, proc, t_start) in enumerate(children):
+            try:
+                proc.wait(timeout=max(1.0, DRYRUN_CHILD_TIMEOUT - (
+                    time.perf_counter() - t_start)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 14 (d) {name}: over "
+                                     f"{DRYRUN_CHILD_TIMEOUT} s")
+            text = (Path(out_dir) / f"child{i}.log").read_text()
+            waited = time.perf_counter() - t_start
+            arch, shape, mesh = name.split(" x ")
+            fname = (f"{arch}__{shape}.json" if arch != "lsmgraph-service"
+                     else "lsmgraph-service__pagerank.json")
+            with open(Path(out_dir) / mesh / fname) as f:
+                rec = json.load(f)
+            out["host_cells"][name] = dict(
+                status=rec["status"], wall_s=rec.get("wall_s"),
+                process_done_s=waited,
+                **{k: rec[k] for k in ("bottleneck", "t_compute_s",
+                                       "t_memory_s", "t_collective_s",
+                                       "peak_memory_per_device",
+                                       "collective_bytes_per_device",
+                                       "replicated_at") if k in rec})
+            log(f"dry run (d) {name} on the host: {rec['status']} in "
+                f"{rec.get('wall_s')} s (its process done by {waited:.1f} "
+                f"s): {json.dumps(out['host_cells'][name])} [{smi}]")
+            if proc.returncode != 0 or rec["status"] != "ok":
+                raise AssertionError(f"phase 14 (d) {name}: "
+                                     f"{rec.get('error')}\n{text[-2000:]}")
+    finally:
+        _stop_host_dryruns(host)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _stop_host_dryruns(host) -> None:
+    """Kill whichever of ``_host_dryruns``' children still runs and remove
+    their directory."""
+    import shutil
+    out_dir, children = host
+    for _, proc, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def store_config():
     from repro_torch.core import StoreConfig
     return StoreConfig(vmax=1 << 22, mem_edges=1 << 21, seg_size=8,
@@ -3610,6 +3888,20 @@ def main(argv=None) -> int:
                              f"{launches['training']} (want none)")
     print(f"main path (training): {json.dumps(trn)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
+    step_ms = trn["steps"][-1]["ms"]
+    del trn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun_path(dev, args.seed, step_ms, smi)
+    launches["dryrun"] = ops.launch_counts()
+    if any(launches["dryrun"].values()):
+        raise AssertionError(f"the dry-run phase launched "
+                             f"{launches['dryrun']} (want none)")
+    print(f"main path (dry run): {json.dumps(dry)}; phase "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
     for r in rows_attention:
         lib = f"{r['library_ms']:.4f} ms"
         dev_ms = (f" ({r['device_ms']:.4f} ms device)"

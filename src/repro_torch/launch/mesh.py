@@ -20,8 +20,13 @@ there and copies the result back, and counts the bytes it stages in
 fallback: a collective either runs this way or raises.  A mesh needs a
 gloo group (NCCL across cards is not supported yet).
 
-``make_production_mesh`` (the reference's 16 x 16 and 2 x 16 x 16 TPU pod
-meshes, which only its TPU dry-run lowers onto) has no counterpart here.
+``make_production_mesh`` builds the reference's production meshes, (data
+16, model 16) and (pod 2, data 16, model 16), as a ``DeviceMesh`` over
+torch's fake process group: one process plays rank 0 of 256 or 512, its
+collectives run nowhere, and the dry run (``launch.dryrun``) traces one
+device's program on it under ``FakeTensorMode``.  ``init_fake_group`` is
+the one place that starts that group.  The mesh ``card`` is no mesh at
+all: one H100, a plain trace.
 
 ``spawn_ranks`` starts the ranks of a mesh on this host: fresh processes
 (start method ``spawn``), one gloo group that meets through a file in a
@@ -42,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.types import resolve_device
+from ..models.partition import axis_names
 
 
 class ShardMesh:
@@ -128,10 +134,56 @@ def make_shard_mesh(n_shards: int, *, device=None, group=None) -> ShardMesh:
     return ShardMesh(("data",), (n_shards,), resolve_device(device), group)
 
 
+#: The dry run's meshes: name -> (shape, axis names); ``card`` is one card
+#: and no mesh.
+PRODUCTION_MESHES = {
+    "single": ((16, 16), ("data", "model")),
+    "multipod": ((2, 16, 16), ("pod", "data", "model")),
+    "card": ((), ()),
+}
+
+
+def init_fake_group(world_size: int) -> None:
+    """Start torch's fake process group of ``world_size`` ranks (this
+    process is rank 0); a fake group of another size is replaced.  A
+    process holds one default group: a fake group and the gloo ranks of
+    ``spawn_ranks`` never share a process."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               f"already initialised")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cpu",
+                         shape=None, axes=None):
+    """Single pod: (data=16, model=16) = 256 cards.  Multi-pod: (pod=2,
+    data=16, model=16) = 512 cards.  A ``DeviceMesh`` of ``device_type``
+    over the fake process group (``shape`` and ``axes`` give another
+    mesh, as the tests' (data 2, model 4)).  Tracing on it needs
+    ``roofline.analysis.patch_dtensor_tracing``, which this applies."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from ..roofline.analysis import patch_dtensor_tracing
+    if shape is None:
+        shape, axes = PRODUCTION_MESHES["multipod" if multi_pod
+                                        else "single"]
+    n = 1
+    for d in shape:
+        n *= d
+    init_fake_group(n)
+    patch_dtensor_tracing()
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
 def dp_axes(mesh) -> tuple:
     """The data-parallel axis bundle: ('pod','data') on multi-pod meshes."""
-    names = mesh.axis_names
-    return tuple(a for a in names if a in ("pod", "data"))
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
 
 
 def mesh_size(mesh) -> int:
@@ -213,5 +265,6 @@ def spawn_ranks(fn: Callable[..., Any], n_ranks: int, *args,
     return [got[r] for r in range(n_ranks)]
 
 
-__all__ = ["ShardMesh", "make_shard_mesh", "dp_axes", "mesh_size",
-           "spawn_ranks"]
+__all__ = ["ShardMesh", "make_shard_mesh", "make_production_mesh",
+           "init_fake_group", "PRODUCTION_MESHES", "axis_names", "dp_axes",
+           "mesh_size", "spawn_ranks"]

@@ -23,9 +23,11 @@ Attention has the reference's two softmax paths: ``full_attention`` (one
 ``_CHUNK`` with a running max, sum and accumulator, in float32);
 ``attention_any`` takes the chunked one when there are more than 8,192
 keys.  Neither calls the port's ``flash_attention`` kernel: the reference's
-models never call its Pallas kernel.  The reference's ``partition.constrain``
-calls return their input outside a mesh; the port has no mesh and leaves
-them out.
+models never call its Pallas kernel.  The ``partition.constrain`` calls
+stand where the reference makes them: they return their input outside a
+mesh, and on a dry run's device mesh they redistribute the DTensor
+activations; ``split_last`` splits heads off a projection (on a mesh it
+gathers a dim that the model axis cannot split evenly first).
 """
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from .partition import (constrain, constrain_scores, divides, fsdp_gather,
+                        gather_seq, local, merge_last, settle, softmax,
+                        split_keys, split_last, whole_last, write_slot)
 
 Cache = Dict[str, torch.Tensor]
 _CHUNK = 2048
@@ -101,10 +106,13 @@ class Linear(nn.Module):
         self.b = init.zeros((d_out,), dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w = promote(x, self.w)
-        y = x @ w
+        # On a mesh the sequence is gathered before the product and the
+        # partial sums reduced after it (sequence parallelism).
+        x = gather_seq(x)
+        x, w = promote(x, fsdp_gather(self.w))
+        y = settle(x @ w)
         if self.b is not None:
-            y = y + self.b
+            y = y + fsdp_gather(self.b)
         return y
 
 
@@ -121,6 +129,7 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """The variance in float32; its rsqrt cast to ``x``'s dtype, multiplied
     in that dtype, then scaled (the reference's order)."""
+    x = whole_last(x)
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
@@ -132,6 +141,7 @@ class LayerNorm(nn.Module):
         self.bias = init.zeros((d,))
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        x = whole_last(x)
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
@@ -183,12 +193,15 @@ def full_attention(q, k, v, qpos, kpos, *, causal: bool, window: int,
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
         v = v.repeat_interleave(hq // hkv, dim=2)
+    k, v = split_keys(k, hq), split_keys(v, hq)
     logits = einsum("bqhd,bkhd->bhqk", q, k)
     logits = logits * _weak(scale, logits.dtype)
+    # Scores sharded (batch x heads or keys): the peak-memory hot spot.
+    logits = constrain_scores(logits)
     ok = _mask_ok(qpos, kpos, causal=causal, window=window)
     logits = logits.masked_fill(~ok, _NEG)
-    p = torch.softmax(logits.float(), -1).to(q.dtype)
-    return einsum("bhqk,bkhd->bqhd", p, v)
+    p = softmax(logits, q.dtype)
+    return settle(einsum("bhqk,bkhd->bqhd", p, v))
 
 
 def _online_softmax_step(carry, s, vt):
@@ -233,6 +246,7 @@ def chunked_attention(q, k, v, qpos, kpos, *, causal: bool, window: int,
     for t in range(skv // _CHUNK):
         sl = slice(t * _CHUNK, (t + 1) * _CHUNK)
         s = torch.einsum("bqhd,bkhd->bhqk", qf, k[:, sl].float())
+        s = constrain_scores(s)
         ok = _mask_ok(qpos, kpos[sl], causal=causal, window=window)
         s = s.masked_fill_(~ok, _NEG)
         carry = _online_softmax_step(carry, s, v[:, sl].float())
@@ -243,6 +257,17 @@ def chunked_attention(q, k, v, qpos, kpos, *, causal: bool, window: int,
 
 def attention_any(q, k, v, qpos, kpos, *, causal: bool, window: int,
                   scale: float) -> torch.Tensor:
+    hq = q.shape[2]
+    if divides(hq, "model"):
+        # On a mesh whose model axis splits the heads, each device attends
+        # with its own heads over its own batch rows: no collective.
+        if k.shape[2] != hq:
+            k = k.repeat_interleave(hq // k.shape[2], dim=2)
+            v = v.repeat_interleave(hq // v.shape[2], dim=2)
+        spec = ("dp", None, "model", None)
+        return local("attention", lambda q_, k_, v_: attention_any(
+            q_, k_, v_, qpos, kpos, causal=causal, window=window,
+            scale=scale), [q, k, v], [spec] * 3, [spec])
     if k.shape[1] > 8192:
         return chunked_attention(q, k, v, qpos, kpos, causal=causal,
                                  window=window, scale=scale)
@@ -271,9 +296,9 @@ class GQA(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
-        q = self.wq(x).reshape(b, s, cfg.n_heads, hd)
-        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, hd)
-        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, hd)
+        q = split_last(self.wq(x), cfg.n_heads, hd)
+        k = split_last(self.wk(x), cfg.n_kv_heads, hd)
+        v = split_last(self.wv(x), cfg.n_kv_heads, hd)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         return q, k, v
@@ -288,7 +313,7 @@ class GQA(nn.Module):
         o = attention_any(q, k, v, pos, pos, causal=causal,
                           window=cfg.swa_window if causal else 0,
                           scale=cfg.hd ** -0.5)
-        y = self.wo(o.reshape(b, s, cfg.n_heads * cfg.hd))
+        y = self.wo(merge_last(o))
         if return_kv:
             return y, {"k": k, "v": v}
         return y
@@ -307,9 +332,8 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: Cache, pos: int,
     q, k, v = p.qkv(x, torch.full((1,), pos, dtype=torch.int32,
                                   device=x.device))
     slot = pos % w
-    ck, cv = cache["k"], cache["v"]
-    ck[:, slot:slot + 1] = k.to(ck.dtype)
-    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    ck = cache["k"] = write_slot(cache["k"], slot, k)
+    cv = cache["v"] = write_slot(cache["v"], slot, v)
     # Absolute position of each slot given the current write head.
     sidx = _arange(w, x.device)
     abs_pos = pos - torch.remainder(pos - sidx, w)
@@ -322,8 +346,8 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: Cache, pos: int,
     logits = einsum("bqhd,bkhd->bhqk", q, kq)
     logits = logits * _weak(hd ** -0.5, logits.dtype)
     logits = logits.masked_fill(~valid[None, None, None, :], _NEG)
-    pr = torch.softmax(logits.float(), -1).to(x.dtype)
-    o = einsum("bhqk,bkhd->bqhd", pr, vq)
+    pr = softmax(logits, x.dtype)
+    o = settle(einsum("bhqk,bkhd->bqhd", pr, vq))
     y = p.wo(o.reshape(b, 1, cfg.n_heads * hd))
     return y, cache
 
@@ -333,19 +357,19 @@ def cross_attention(p: GQA, x: torch.Tensor, kv: Cache,
     """Decoder cross-attention over precomputed encoder k/v (no mask)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = p.wq(x).reshape(b, s, cfg.n_heads, hd)
+    q = split_last(p.wq(x), cfg.n_heads, hd)
     qpos = _arange(s, x.device)
     kpos = _arange(kv["k"].shape[1], x.device)
     o = attention_any(q, kv["k"], kv["v"], qpos, kpos, causal=False,
                       window=0, scale=hd ** -0.5)
-    return p.wo(o.reshape(b, s, cfg.n_heads * hd))
+    return p.wo(merge_last(o))
 
 
 def cross_kv(p: GQA, memory: torch.Tensor, cfg: ModelConfig) -> Cache:
     b, sm, _ = memory.shape
     hd = cfg.hd
-    k = p.wk(memory).reshape(b, sm, cfg.n_kv_heads, hd)
-    v = p.wv(memory).reshape(b, sm, cfg.n_kv_heads, hd)
+    k = split_last(p.wk(memory), cfg.n_kv_heads, hd)
+    v = split_last(p.wv(memory), cfg.n_kv_heads, hd)
     if cfg.n_kv_heads != cfg.n_heads:
         k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
         v = v.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
@@ -383,6 +407,7 @@ def mla_latent_chunked_attention(qcat, ckv, kr, wuk, wuv, *, scale: float,
         kpos_t = t * _CHUNK + _arange(_CHUNK, qcat.device)
         kpos_t = torch.where(kpos_t < s, kpos_t, _PAD_POS)
         sc = torch.einsum("bqhd,bkhd->bhqk", qf, kcat_t)
+        sc = constrain_scores(sc)
         ok = _mask_ok(qpos, kpos_t, causal=True, window=0)
         sc = sc.masked_fill_(~ok, _NEG)
         carry = _online_softmax_step(carry, sc, v_t)
@@ -416,7 +441,10 @@ class MLA(nn.Module):
         m = self.cfg.mla
         b, s, _ = x.shape
         q = self.wuq(self.q_norm(self.wdq(x)))
-        return q.reshape(b, s, self.cfg.n_heads, m.qk_nope + m.qk_rope)
+        # 128-head MLA queries: heads over the model axis.
+        return constrain(split_last(q, self.cfg.n_heads,
+                                    m.qk_nope + m.qk_rope),
+                         "dp", None, "model", None)
 
     def latent(self, x: torch.Tensor, pos: torch.Tensor):
         """The cached part of ``x``: the normed latent [B,S,kv_lora] and
@@ -446,18 +474,27 @@ class MLA(nn.Module):
         if cfg.mla_absorbed_prefill and s > 4096:
             # Expand K/V from the latent chunk by chunk: the full (B,S,H,·)
             # key and value tensors never exist.
-            wuk = self.wuk.w.reshape(m.kv_lora, h, m.qk_nope)
-            wuv = self.wuv.w.reshape(m.kv_lora, h, m.v_dim)
-            o = mla_latent_chunked_attention(
-                qcat, ckv, kr[:, :, 0, :], wuk, wuv, scale=scale, h=h,
-                qk_nope=m.qk_nope, v_dim=m.v_dim)
+            wuk = split_last(fsdp_gather(self.wuk.w), h, m.qk_nope)
+            wuv = split_last(fsdp_gather(self.wuv.w), h, m.v_dim)
+            # On a mesh each device streams its own heads over its own
+            # batch rows (local tensors: no collective).
+            hs, rows = ("dp", None, "model", None), ("dp", None, None)
+            o = local("attention", lambda q_, c_, r_, k_, v_:
+                      mla_latent_chunked_attention(
+                          q_, c_, r_, k_, v_, scale=scale, h=q_.shape[2],
+                          qk_nope=m.qk_nope, v_dim=m.v_dim),
+                      [qcat, ckv, kr[:, :, 0, :], wuk, wuv],
+                      [hs, rows, rows, (None, "model", None),
+                       (None, "model", None)], [hs])
         else:
-            kn = self.wuk(ckv).reshape(b, s, h, m.qk_nope)
-            v = self.wuv(ckv).reshape(b, s, h, m.v_dim)
+            kn = constrain(split_last(self.wuk(ckv), h, m.qk_nope),
+                           "dp", None, "model", None)
+            v = constrain(split_last(self.wuv(ckv), h, m.v_dim),
+                          "dp", None, "model", None)
             kcat = torch.cat([kn, kr.expand(b, s, h, m.qk_rope)], -1)
             o = attention_any(qcat, kcat, v, pos, pos, causal=True, window=0,
                               scale=scale)
-        y = self.wo(o.reshape(b, s, h * m.v_dim))
+        y = self.wo(merge_last(o))
         if return_cache:
             return y, {"ckv": ckv, "kr": kr[:, :, 0]}
         return y
@@ -480,10 +517,9 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: Cache, pos: int,
     qn, qr = q[..., :m.qk_nope], q[..., m.qk_nope:]
     qr = apply_rope(qr, pos_t, cfg.rope_theta)
     ckv_t, kr_t = p.latent(x, pos_t)
-    cache_ckv, cache_kr = cache["ckv"], cache["kr"]
-    cache_ckv[:, pos:pos + 1] = ckv_t.to(cache_ckv.dtype)
-    cache_kr[:, pos:pos + 1] = kr_t[:, :, 0, :].to(cache_kr.dtype)
-    wuk = p.wuk.w.reshape(m.kv_lora, h, m.qk_nope)
+    cache_ckv = cache["ckv"] = write_slot(cache["ckv"], pos, ckv_t)
+    cache_kr = cache["kr"] = write_slot(cache["kr"], pos, kr_t[:, :, 0, :])
+    wuk = split_last(fsdp_gather(p.wuk.w), h, m.qk_nope)
     q_eff = einsum("bhn,khn->bhk", qn[:, 0], wuk)
     s_lat = einsum("bhk,bsk->bhs", q_eff, cache_ckv)
     s_rope = einsum("bhr,bsr->bhs", qr[:, 0], cache_kr)
@@ -491,9 +527,9 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: Cache, pos: int,
     logits = logits * _weak((m.qk_nope + m.qk_rope) ** -0.5, logits.dtype)
     sidx = _arange(w, x.device)
     logits = logits.masked_fill(~(sidx <= pos)[None, None, :], _NEG)
-    pr = torch.softmax(logits.float(), -1).to(x.dtype)
-    o_lat = einsum("bhs,bsk->bhk", pr, cache_ckv)
-    wuv = p.wuv.w.reshape(m.kv_lora, h, m.v_dim)
+    pr = softmax(logits, x.dtype)
+    o_lat = settle(einsum("bhs,bsk->bhk", pr, cache_ckv))
+    wuv = split_last(fsdp_gather(p.wuv.w), h, m.v_dim)
     o = einsum("bhk,khv->bhv", o_lat, wuv)
     y = p.wo(o.reshape(b, 1, h * m.v_dim))
     return y, cache

@@ -30,9 +30,16 @@ the period and of the encoder is recomputed in the backward pass
 the unbatched matrix products (the reference's
 ``dots_with_no_batch_dims_saveable``).  Remat changes no bit of the
 gradients.
+
+The reference's ``partition.constrain`` calls stand where it makes them.
+Off a mesh they, and every other mesh-only path (the vocab-split
+embedding and target gather, the cache writes), are the old code; inside
+``partition.shard_context(mesh)`` the weights, batch and cache are
+DTensors and the dry run (``launch.dryrun``) traces one device's program.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -42,6 +49,7 @@ from torch.utils import checkpoint as ckpt
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
 from . import layers as L
+from . import partition
 from .moe import MoE, aux_load_balance_loss
 from .ssm import SSM, init_ssm_state, ssd_train, ssm_decode
 
@@ -199,9 +207,71 @@ def _encode(cfg: ModelConfig, model: Model,
     return model.enc_norm(x, cfg.norm_eps)
 
 
+class _PickLast(torch.autograd.Function):
+    """``torch.gather(x, -1, idx[..., None])[..., 0]``, whose backward adds
+    the gradient into a zero tensor in place, as torch's own gather
+    backward does in a plain run.  Under any Python dispatch mode (the dry
+    run's tracing modes, ``FlopCounterMode``) torch's backward takes its
+    out-of-place ``scatter_add`` instead, which holds a second
+    [tokens, vocab] float32 tensor at the training step's peak: a trace
+    would then predict a peak the plain step never reaches."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        idx = idx.long()[..., None]
+        ctx.save_for_backward(idx)
+        ctx.x_shape = x.shape
+        return torch.gather(x, -1, idx)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        gx = g.new_zeros(ctx.x_shape).scatter_add_(-1, idx, g[..., None])
+        return gx, None
+
+
+def pick_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` along the last dim, one index a row (``_PickLast``)."""
+    return _PickLast.apply(x, idx)
+
+
+def _vocab_gather(table, ids):
+    """Rows ``ids`` of a vocab-split ``table`` (this device's rows): the
+    rows this device holds, zeros for the rest."""
+    n = table.shape[0]
+    rel = ids.long() - partition.axis_rank("model") * n
+    ok = (rel >= 0) & (rel < n)
+    rows = table[rel.clamp(0, n - 1)]
+    return rows * ok[..., None].to(rows.dtype)
+
+
+def _vocab_pick(logits, tgt):
+    """``logits[..., tgt]`` of vocab-split ``logits`` (this device's
+    columns), zero where the column lies on another device."""
+    n = logits.shape[-1]
+    rel = tgt.long() - partition.axis_rank("model") * n
+    ok = (rel >= 0) & (rel < n)
+    got = pick_last(logits, rel.clamp(0, n - 1))
+    return got * ok.to(got.dtype)
+
+
+def _embed_rows(model: Model, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``ids``.  On a mesh the table's vocab dim
+    is split over ``model``: each device gathers the rows it holds and
+    zeros the rest, and the partial sums are added over ``model``."""
+    if partition.current_mesh() is None:
+        return model.embed[ids.long()]
+    split = partition.divides(model.embed.shape[0], "model")
+    return partition.local(
+        "embed", _vocab_gather, [model.embed, ids],
+        [("model" if split else None, None),
+         ("dp",) + (None,) * (ids.dim() - 1)],
+        [("dp",) + (None,) * ids.dim()], partial="model" if split else None)
+
+
 def _embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
                   frontend: Optional[torch.Tensor]) -> torch.Tensor:
-    x = model.embed[tokens.long()]
+    x = _embed_rows(model, tokens)
     if frontend is not None and cfg.family != "encdec":
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     return x
@@ -209,7 +279,7 @@ def _embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
 
 def _logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
     head = model.embed.t() if cfg.tie_embeddings else model.head
-    x, head = L.promote(x, head)
+    x, head = L.promote(partition.gather_seq(x), partition.fsdp_gather(head))
     logits = x @ head
     vp = logits.shape[-1]
     if vp != cfg.vocab:  # mask padded vocab rows
@@ -228,6 +298,9 @@ def _block_train(cfg: ModelConfig, blk: Block, x: torch.Tensor,
     """One layer of the training forward pass; MoE layers add their
     load-balance loss to ``aux``."""
     eps = cfg.norm_eps
+    # Block-boundary activations sequence-sharded over the model axis
+    # (the reference's Megatron-SP layout).
+    x = partition.constrain(x, "dp", "model", None)
     h = blk.norm1(x, eps)
     if blk.ldef.mixer == "ssm":
         x = x + ssd_train(blk.ssm, h, cfg)
@@ -277,16 +350,26 @@ def loss(cfg: ModelConfig, model: Model,
     n_front = (0 if frontend is None or cfg.family == "encdec"
                else frontend.shape[1])
     # The bf16 logits are not kept: only their float32 copy is read.
-    lf = _logits(cfg, model, x[:, n_front:, :]).float()
+    lf = partition.constrain(_logits(cfg, model, x[:, n_front:, :]),
+                             "dp", None, "model").float()
     tgt = batch.get("targets")
     if tgt is None:
         tgt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
-    mx = lf.detach().amax(-1, keepdim=True)
-    lse = torch.log(torch.exp(lf - mx).sum(-1)) + mx[..., 0]
-    tgt_logit = torch.gather(lf, -1, tgt.long()[..., None])[..., 0]
+    mx = partition.complete(lf.detach().amax(-1, keepdim=True))
+    lse = torch.log(partition.complete(torch.exp(lf - mx).sum(-1))) + \
+        mx[..., 0]
+    if partition.current_mesh() is None:
+        tgt_logit = pick_last(lf, tgt)
+    else:  # the vocab dim is split over model: a masked gather
+        split = partition.divides(lf.shape[-1], "model")
+        tgt_logit = partition.local(
+            "target_logit", _vocab_pick, [lf, tgt],
+            [("dp", None, "model" if split else None), ("dp", None)],
+            [("dp", None)], partial="model" if split else None)
     nll = lse - tgt_logit
-    mask = torch.ones_like(nll)
+    mask = torch.ones(nll.shape, dtype=nll.dtype, device=nll.device)
     mask[:, -1] = 0.0
+    mask = partition.constrain(mask, "dp", None)
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + 0.01 * aux
 
@@ -302,18 +385,15 @@ def _attn_cache_width(cfg: ModelConfig, s_max: int) -> int:
 def _init_layer_cache(cfg: ModelConfig, ldef: LayerDef, b: int, s_max: int,
                       dtype, device):
     hd = cfg.hd
+    zeros = partition.cache_zeros
     if ldef.mixer == "attn":
         w = _attn_cache_width(cfg, s_max)
-        return {"k": torch.zeros((b, w, cfg.n_kv_heads, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((b, w, cfg.n_kv_heads, hd), dtype=dtype,
-                                 device=device)}
+        return {name: zeros(name, (b, w, cfg.n_kv_heads, hd), dtype, device)
+                for name in ("k", "v")}
     if ldef.mixer == "mla":
         m = cfg.mla
-        return {"ckv": torch.zeros((b, s_max, m.kv_lora), dtype=dtype,
-                                   device=device),
-                "kr": torch.zeros((b, s_max, m.qk_rope), dtype=dtype,
-                                  device=device)}
+        return {"ckv": zeros("ckv", (b, s_max, m.kv_lora), dtype, device),
+                "kr": zeros("kr", (b, s_max, m.qk_rope), dtype, device)}
     return init_ssm_state(cfg, b, dtype, device)
 
 
@@ -334,23 +414,41 @@ def _mixer_prefill(cfg: ModelConfig, blk: Block, h: torch.Tensor, c):
         y, kv = blk.attn(h, return_kv=True)
         w = c["k"].shape[1]
         if w >= s:
-            c["k"][:, :s] = kv["k"].to(c["k"].dtype)
-            c["v"][:, :s] = kv["v"].to(c["v"].dtype)
+            for name in ("k", "v"):
+                c[name] = partition.fill_prefix(c[name], kv[name])
             return y, c
         # SWA ring: keep the tail, aligned to slot = pos % w.
         roll = (s - w) % w
-        return y, {name: torch.roll(kv[name][:, -w:], roll, dims=1)
-                   .to(c[name].dtype) for name in ("k", "v")}
+
+        def ring(t):
+            return torch.roll(t[:, -w:], roll, dims=1)
+        spec = ("dp", None, None, None)
+        return y, {name: partition.constrain(
+            partition.local("swa_ring", ring, [kv[name]], [spec], [spec])
+            .to(c[name].dtype), *partition.cache_spec(name))
+            for name in ("k", "v")}
     if blk.ldef.mixer == "mla":
         y, lat = blk.attn(h, return_cache=True)
-        c["ckv"][:, :s] = lat["ckv"].to(c["ckv"].dtype)
-        c["kr"][:, :s] = lat["kr"].to(c["kr"].dtype)
+        for name in ("ckv", "kr"):
+            c[name] = partition.fill_prefix(c[name], lat[name])
         return y, c
     return ssd_train(blk.ssm, h, cfg, return_state=True,
                      state_dtype=c["conv"].dtype)
 
 
-@torch.inference_mode()
+def _serving(fn):
+    """Run ``fn`` under ``torch.inference_mode`` (under ``no_grad`` on a
+    mesh: DTensor parameters cannot be read in inference mode)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        mode = (torch.inference_mode() if partition.current_mesh() is None
+                else torch.no_grad())
+        with mode:
+            return fn(*args, **kwargs)
+    return run
+
+
+@_serving
 def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
             s_max: Optional[int] = None, cache_dtype=L.CACHE_DTYPE):
     """Run the whole prompt; return (last logits [B, padded vocab], the
@@ -383,14 +481,14 @@ def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
     return _logits(cfg, model, x[:, -1:, :])[:, 0, :], cache
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(cfg: ModelConfig, model: Model, cache: Cache,
                 token: torch.Tensor, pos) -> Tuple[torch.Tensor, Cache]:
     """token: (B,) int; pos: the token's position (an int).  Returns
     (logits (B, padded vocab), the cache, written in place)."""
     pos = int(pos)
     eps = cfg.norm_eps
-    x = model.embed[token.long()][:, None, :]
+    x = _embed_rows(model, token)[:, None, :]
     layers = cache["layers"]
     for i, blk in enumerate(model.blocks):
         h = blk.norm1(x, eps)

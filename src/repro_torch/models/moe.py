@@ -13,7 +13,8 @@ is held within a tolerance, not byte-equal).
 Supports top-k routing with capacity dropping, shared experts
 (DeepSeek-V2), a parallel dense residual (Arctic) and leading dense layers
 (DeepSeek-V2, through the layer plan).  The reference groups tokens by the
-mesh's data-parallel shards; with no mesh that is one group, as here.
+mesh's data-parallel shards: one group off a mesh, and on a dry run's
+device mesh one group a data-parallel shard.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig, MoEConfig
+from . import partition
 from .layers import MLP, Init, Linear, einsum
 
 
@@ -50,11 +52,15 @@ class MoE(nn.Module):
         self.shared = MLP(d, m.n_shared * ff, init) if m.n_shared else None
         self.dense = MLP(d, cfg.d_ff, init) if m.dense_residual else None
 
-    def route(self, xt: torch.Tensor):
+    def route(self, xt: torch.Tensor, w=None):
         """Top-k routing of tokens ``xt`` [T, d]: (gates [T, k] normalised
-        to sum 1, expert ids [T, k] int64, router probabilities [T, E])."""
+        to sum 1, expert ids [T, k] int64, router probabilities [T, E]).
+        ``w`` is the float32 router weight [d, E] (default: the module's,
+        its data-parallel shards gathered on a mesh)."""
         m = self.cfg.moe
-        pr = torch.softmax(self.router(xt.float()), -1)
+        if w is None:
+            w = partition.fsdp_gather(self.router.w)
+        pr = torch.softmax(xt.float() @ w, -1)
         gates, ids = torch.topk(pr, m.top_k, dim=-1)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
         return gates, ids, pr
@@ -81,30 +87,58 @@ class MoE(nn.Module):
         return idx[:n_slots], gts[:n_slots]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, S, d] -> [B, S, d]."""
+        """x: [B, S, d] -> [B, S, d].  Tokens are grouped by their
+        data-parallel shard (the reference's ``_n_dispatch_groups``: one
+        group off a mesh), so the sort, rank and scatter run on each
+        device's own tokens, and the experts are split over ``model``
+        (expert parallelism).  No DTensor sharding strategy covers the
+        sort-based dispatch, so on a mesh it runs on the local tensors
+        (``partition.local``, the identity off a mesh): each device routes
+        its group over every expert, runs the experts it holds and adds
+        their outputs to its tokens; the sum over ``model`` completes
+        them."""
         m = self.cfg.moe
         b, s, d = x.shape
-        t = b * s
-        capg = expert_capacity(t, m, override=self.cfg.moe_capacity_override)
-        xt = x.reshape(t, d)
-        gates, ids, _ = self.route(xt)
-        idx, gate_disp = self.dispatch(ids, gates, capg)
-        xt_pad = torch.cat([xt, xt.new_zeros((1, d))])   # row t = zeros
-        x_disp = xt_pad[idx].reshape(m.n_experts, capg, d)
-        h = F.silu(einsum("ecd,edf->ecf", x_disp, self.wg)) * \
-            einsum("ecd,edf->ecf", x_disp, self.wu)
-        y_exp = einsum("ecf,efd->ecd", h, self.wd)
-        y_flat = y_exp.reshape(m.n_experts * capg, d)
-        y_flat = y_flat * gate_disp[:, None].to(y_flat.dtype)
-        # Combine: add the weighted expert outputs back to their tokens
-        # (the empty slots' row t is cut off).
-        y = x.new_zeros((t + 1, d)).index_add_(0, idx, y_flat.to(x.dtype))
-        y = y[:t]
+        split = partition.divides(m.n_experts, "model")
+        ex = "model" if split else None
+
+        def group(xl, router_w, wg, wu, wd):
+            bl = xl.shape[0]
+            t = bl * s
+            capg = expert_capacity(t, m,
+                                   override=self.cfg.moe_capacity_override)
+            xt = xl.reshape(t, d)
+            gates, ids, _ = self.route(xt, router_w)
+            idx, gate_disp = self.dispatch(ids, gates, capg)
+            # This device's experts: rows [lo, lo + n) of the slot table.
+            n = wg.shape[0]
+            if split:
+                lo = partition.axis_rank("model") * n
+                idx = idx.reshape(m.n_experts, capg)[lo:lo + n].reshape(-1)
+                gate_disp = gate_disp.reshape(m.n_experts, capg)[lo:lo + n]
+            xt_pad = torch.cat([xt, xt.new_zeros((1, d))])  # row t = zeros
+            x_disp = xt_pad[idx].reshape(n, capg, d)
+            h = F.silu(einsum("ecd,edf->ecf", x_disp, wg)) * \
+                einsum("ecd,edf->ecf", x_disp, wu)
+            y_flat = einsum("ecf,efd->ecd", h, wd).reshape(n * capg, d)
+            y_flat = y_flat * gate_disp.reshape(-1)[:, None].to(y_flat.dtype)
+            # Combine: add the weighted expert outputs back to their tokens
+            # (the empty slots' row t is cut off).
+            y = xl.new_zeros((t + 1, d)).index_add_(0, idx,
+                                                    y_flat.to(xl.dtype))
+            return y[:t].reshape(bl, s, d)
+
+        y = partition.local(
+            "moe_dispatch", group,
+            [x, self.router.w, self.wg, self.wu, self.wd],
+            [("dp", None, None), (None, None), (ex, None, None),
+             (ex, None, None), (ex, None, None)],
+            [("dp", None, None)], partial=ex)
         if self.shared is not None:
-            y = y + self.shared(xt)
+            y = y + self.shared(x)
         if self.dense is not None:
-            y = y + self.dense(xt)
-        return y.reshape(b, s, d)
+            y = y + self.dense(x)
+        return y
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .layers import CACHE_DTYPE, Init, Linear, einsum, rmsnorm
+from .partition import cache_zeros, constrain, local, merge_last
 
 State = Dict[str, torch.Tensor]
 
@@ -70,6 +71,67 @@ def _gated_norm(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return rmsnorm(p.norm_scale, y * F.silu(z), 1e-5)
 
 
+def _ssd_core(xh, Bm, Cm, dt, A_log, D, dt_bias, q: int):
+    """The SSD recurrence of ``ssd_train``: heads ``xh`` [B,S,H,P], the
+    shared ``Bm``/``Cm`` [B,S,N], raw ``dt`` [B,S,H] and the per-head
+    ``A_log``, ``D``, ``dt_bias`` [H], in chunks of ``q``.  -> (y
+    [B,S,H,P] float32 with the ``D`` skip, the final state [B,H,N,P])."""
+    b, s, nh, hp = xh.shape
+    n = Bm.shape[-1]
+    nc = s // q
+    a = -torch.exp(A_log)                                    # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                    # (B,S,H)
+    da = dt * a                                              # (B,S,H) <= 0
+
+    # Chunk views with the heads over the model axis: the (B,NC,Q,H,P)
+    # float32 intermediates are the SSD's peak-memory hot spot.
+    xc = constrain(xh.reshape(b, nc, q, nh, hp).float(),
+                   "dp", None, None, "model", None)
+    Bc = Bm.reshape(b, nc, q, n).float()
+    Cc = Cm.reshape(b, nc, q, n).float()
+    dac = constrain(da.reshape(b, nc, q, nh), "dp", None, None, "model")
+    dtc = constrain(dt.reshape(b, nc, q, nh), "dp", None, None, "model")
+    cum = torch.cumsum(dac, dim=2)                           # (B,NC,Q,H)
+
+    # Intra-chunk (diagonal) term, factored as
+    # y_i = exp(cum_i) * sum_{j<=i} sc[i,j] * (exp(-cum_j)·dt_j·x_j), which
+    # contracts over (Q,Q) without the head dim.  cum is clipped to
+    # [-30, 0] so exp(-cum) stays finite.
+    cum_c = torch.clamp(cum, -30.0, 0.0)
+    mask = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    sc = torch.einsum("bcin,bcjn->bcij", Cc, Bc)             # (B,NC,Q,Q)
+    scm = sc.masked_fill(~mask, 0.0)
+    u = torch.exp(-cum_c)[..., None] * dtc[..., None] * xc   # (B,NC,Q,H,P)
+    u = constrain(u, "dp", None, None, "model", None)
+    y_pre = constrain(torch.einsum("bcij,bcjhp->bcihp", scm, u),
+                      "dp", None, None, "model", None)
+    y_diag = torch.exp(cum_c)[..., None] * y_pre
+
+    # Chunk summary states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j x_j^T.
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)           # (B,NC,Q,H)
+    states = constrain(torch.einsum("bcjh,bcjh,bcjn,bcjhp->bchnp",
+                                    decay_end, dtc, Bc, xc),
+                       "dp", None, "model", None, None)      # (B,NC,H,N,P)
+
+    # Inter-chunk recurrence over the chunk index.
+    chunk_decay = torch.exp(cum[:, :, -1, :])                # (B,NC,H)
+    h = torch.zeros((b, nh, n, hp), dtype=torch.float32, device=xh.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, 1)                        # (B,NC,H,N,P)
+
+    # Off-diagonal (inter-chunk) output: C_i · h_prev, decayed from the
+    # chunk's start.
+    decay_in = torch.exp(cum)                                # (B,NC,Q,H)
+    y_off = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, decay_in, h_prevs)
+
+    y = (y_diag + y_off).reshape(b, s, nh, hp)
+    y = y + xh.float() * D[None, None, :, None]
+    return y, h
+
+
 def ssd_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
               return_state: bool = False, state_dtype=CACHE_DTYPE):
     """Chunked SSD forward. x: [B, S, d] -> [B, S, d] (and the final state
@@ -86,7 +148,6 @@ def ssd_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
             raise ValueError("prefill length must be a chunk multiple")
         pad = q - s % q
         return ssd_train(p, F.pad(x, (0, 0, 0, pad)), cfg)[:, :s]
-    nc = s // q
     z, xbc_raw, dt = _split_proj(cfg, p.in_proj(x))
     xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
     xin, Bm, Cm = torch.split(xbc, [di, g * n, g * n], -1)
@@ -95,51 +156,17 @@ def ssd_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
     Cm = Cm.reshape(b, s, g, n)
     Bm, Cm = (Bm[:, :, 0], Cm[:, :, 0]) if g == 1 else (Bm.mean(2),
                                                          Cm.mean(2))
-    a = -torch.exp(p.A_log)                                  # (H,)
-    dt = F.softplus(dt.float() + p.dt_bias)                  # (B,S,H)
-    da = dt * a                                              # (B,S,H) <= 0
-
-    xc = xh.reshape(b, nc, q, nh, hp).float()
-    Bc = Bm.reshape(b, nc, q, n).float()
-    Cc = Cm.reshape(b, nc, q, n).float()
-    dac = da.reshape(b, nc, q, nh)
-    dtc = dt.reshape(b, nc, q, nh)
-    cum = torch.cumsum(dac, dim=2)                           # (B,NC,Q,H)
-
-    # Intra-chunk (diagonal) term, factored as
-    # y_i = exp(cum_i) * sum_{j<=i} sc[i,j] * (exp(-cum_j)·dt_j·x_j), which
-    # contracts over (Q,Q) without the head dim.  cum is clipped to
-    # [-30, 0] so exp(-cum) stays finite.
-    cum_c = torch.clamp(cum, -30.0, 0.0)
-    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    sc = torch.einsum("bcin,bcjn->bcij", Cc, Bc)             # (B,NC,Q,Q)
-    scm = sc.masked_fill(~mask, 0.0)
-    u = torch.exp(-cum_c)[..., None] * dtc[..., None] * xc   # (B,NC,Q,H,P)
-    y_pre = torch.einsum("bcij,bcjhp->bcihp", scm, u)
-    y_diag = torch.exp(cum_c)[..., None] * y_pre
-
-    # Chunk summary states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j x_j^T.
-    decay_end = torch.exp(cum[:, :, -1:, :] - cum)           # (B,NC,Q,H)
-    states = torch.einsum("bcjh,bcjh,bcjn,bcjhp->bchnp",
-                          decay_end, dtc, Bc, xc)            # (B,NC,H,N,P)
-
-    # Inter-chunk recurrence over the chunk index.
-    chunk_decay = torch.exp(cum[:, :, -1, :])                # (B,NC,H)
-    h = torch.zeros((b, nh, n, hp), dtype=torch.float32, device=x.device)
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_prevs = torch.stack(h_prevs, 1)                        # (B,NC,H,N,P)
-
-    # Off-diagonal (inter-chunk) output: C_i · h_prev, decayed from the
-    # chunk's start.
-    decay_in = torch.exp(cum)                                # (B,NC,Q,H)
-    y_off = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, decay_in, h_prevs)
-
-    y = (y_diag + y_off).reshape(b, s, nh, hp)
-    y = y + xh.float() * p.D[None, None, :, None]
-    y = _gated_norm(p, y.reshape(b, s, di).to(x.dtype), z)
+    # On a mesh each device runs the recurrence for its own heads over its
+    # own batch rows (the layouts the reference's constrain calls pin):
+    # local tensors, no collective.
+    heads, rows = ("dp", None, "model", None), ("dp", None, None)
+    y, h = local("ssd", lambda *t: _ssd_core(*t, q),
+                 [xh, Bm, Cm, dt, p.A_log, p.D, p.dt_bias],
+                 [heads, rows, rows, ("dp", None, "model"), ("model",),
+                  ("model",), ("model",)],
+                 [heads, ("dp", "model", None, None)])
+    y = merge_last(y)
+    y = _gated_norm(p, y.to(x.dtype), z)
     out = p.out_proj(y)
     if return_state:
         conv_tail = xbc_raw[:, -(s_cfg.d_conv - 1):, :].to(state_dtype)
@@ -150,10 +177,9 @@ def ssd_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
 def init_ssm_state(cfg: ModelConfig, b: int, dtype=CACHE_DTYPE,
                    device=None) -> State:
     s_cfg, di, nh, g, n, hp = _dims(cfg)
-    return {"h": torch.zeros((b, nh, n, hp), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros((b, s_cfg.d_conv - 1, di + 2 * g * n),
-                                dtype=dtype, device=device)}
+    return {"h": cache_zeros("h", (b, nh, n, hp), torch.float32, device),
+            "conv": cache_zeros("conv", (b, s_cfg.d_conv - 1, di + 2 * g * n),
+                                dtype, device)}
 
 
 def ssm_decode(p: SSM, x: torch.Tensor, state: State,

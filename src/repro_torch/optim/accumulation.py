@@ -10,6 +10,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..models import partition
+
 
 def accumulate_grads(loss_fn: Callable, model, batch: Dict[str, torch.Tensor],
                      n_micro: int) -> Tuple[torch.Tensor, Dict[str,
@@ -32,10 +34,20 @@ def accumulate_grads(loss_fn: Callable, model, batch: Dict[str, torch.Tensor],
         return loss, {k: torch.zeros_like(params[k]) if g is None else g
                       for k, g in grads.items()}
 
-    micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
-             for k, v in batch.items()}
+    if partition.current_mesh() is None:
+        micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
+                 for k, v in batch.items()}
+    else:
+        # On a dry run's mesh the batch dim is split over the data axes:
+        # micro-batch i takes rows i, i + n_micro, ..., so that each
+        # device's rows split evenly (the same global batch).
+        micro = {k: v.reshape((v.shape[0] // n_micro, n_micro) + v.shape[1:])
+                 .transpose(0, 1) for k, v in batch.items()}
     tot_l = None
-    tot_g = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: on a dry run's mesh a DTensor parameter's accumulator is
+    # laid out as the parameter is.
+    tot_g = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for k, p in params.items()}
     for i in range(n_micro):
         loss, grads = value_and_grad({k: v[i] for k, v in micro.items()})

@@ -37,7 +37,9 @@ def _named_params(params) -> Dict[str, torch.Tensor]:
 def adamw_init(params) -> AdamWState:
     named = _named_params(params)
     dev = next(iter(named.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a DTensor parameter's moments are laid out as it is.
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for k, p in named.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=zeros, v={k: z.clone() for k, z in zeros.items()})

@@ -1336,3 +1336,69 @@ def test_cuda_checkpoint_model_round_trip(tmp_path):
         assert q.device.type == "cuda" and q.dtype == p.dtype
         assert torch.equal(p, q), n
     assert torch.equal(got_opt.v["embed"], opt.v["embed"])
+
+
+def _warm_cublas(dev):
+    """A product forward and backward: cuBLAS gives each thread (the
+    autograd engine's too) a handle and a workspace from the caching
+    allocator on its first product, which no dry run counts."""
+    a = torch.ones(256, 256, device=dev, requires_grad=True)
+    (a @ a).sum().backward()
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_cuda_dry_run_holds_to_the_card(kind):
+    """The one-card dry run (``launch.dryrun.trace_cell`` with no mesh, on
+    fake CUDA tensors) of reduced qwen2-1.5b against the same step run on
+    the card, as phase 14 runs it: the traced peak within
+    ``dryrun.PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` over a step
+    with no dispatch mode, above what was allocated before the step's
+    inputs were made, once cuBLAS has its workspaces; then FLOPs equal to
+    ``FlopCounterMode``'s count over another step."""
+    from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, init_cache
+    from repro_torch.optim import adamw_init
+    dev = _card()
+    cfg = reduced_config("qwen2-1.5b")
+    shape = ShapeConfig("t", 256, 8, kind)
+    n_micro = 2 if kind == "train" else 1
+    trace, _ = dryrun.trace_cell("qwen2-1.5b", shape, None, dev,
+                                 n_micro=n_micro, cfg_override=cfg)
+    _warm_cublas(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = Model(cfg, device=dev, seed=0)
+    batch = dryrun.input_specs(cfg, shape, dev)
+    if kind == "train":
+        opt = adamw_init(model)
+        step = dryrun.make_train_step(cfg, n_micro=n_micro)
+
+        def run():
+            return step(model, opt, batch)
+    elif kind == "prefill":
+        step = dryrun.make_prefill_step(cfg, shape.seq_len)
+
+        def run():
+            return step(model, batch)
+    else:
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                           device=dev)
+        step = dryrun.make_serve_step(cfg)
+
+        def run():
+            return step(model, cache, batch["token"], shape.seq_len - 1)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert abs(trace.peak - peak) <= dryrun.PEAK_TOL * peak, (trace.peak,
+                                                              peak)
+    fc = FlopCounterMode(display=False)
+    with _FlopCounterMode(fc):
+        run()
+    assert trace.flops == fc.get_total_flops()

@@ -15,7 +15,9 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "segment_variants.py", ROOT / "tools" / "probe_bench.py",
     ROOT / "tools" / "lint_locks_torch.py",
     ROOT / "tools" / "obs_smoke_torch.py",
-    ROOT / "tools" / "bench_trajectory_smoke_torch.py"]
+    ROOT / "tools" / "bench_trajectory_smoke_torch.py",
+    ROOT / "tools" / "hillclimb_torch.py",
+    ROOT / "tools" / "fill_experiments_torch.py"]
 BLOCKED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
@@ -74,11 +76,22 @@ def test_port_files_found():
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
 
+def test_every_reference_module_has_a_counterpart():
+    """Each module of the JAX package has a module of the same path in the
+    port: the port does all that the JAX package does."""
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (port / p.relative_to(ref)).exists()]
+    assert not missing, missing
+
+
 def test_port_modules_import_without_jax():
     """The shard layer (its mesh write router too), the distributed layer,
-    the service, the observability modules and the LM serving and training
-    paths import in a fresh interpreter in which ``jax`` and ``repro`` cannot be
-    imported at all."""
+    the service, the observability modules, the LM serving and training
+    paths, the dry run and roofline, and their tools import in a fresh
+    interpreter in which ``jax`` and ``repro`` cannot be imported at
+    all."""
     import os
     import subprocess
     import sys
@@ -106,11 +119,17 @@ def test_port_modules_import_without_jax():
         "import repro_torch.runtime, repro_torch.data.pipeline\n"
         "import repro_torch.launch.train, repro_torch.examples.train_lm\n"
         "from repro_torch.models import loss\n"
+        "import repro_torch.roofline, repro_torch.roofline.report\n"
+        "import repro_torch.models.partition, repro_torch.launch.shardings\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.graph_dryrun\n"
+        "import runpy\n"
+        "for t in ('hillclimb_torch', 'fill_experiments_torch'):\n"
+        "    runpy.run_path(%r + '/tools/' + t + '.py', run_name='x')\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "assert len(ARCH_IDS) == 10\n"
         "assert get_config('qwen2-1.5b').n_layers == 28\n"
         "suites()\n"
-        "print('ok')\n")
+        "print('ok')\n") % str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env=dict(os.environ,
