@@ -1,0 +1,2 @@
+"""device_idle_pct.read, % (device trace): see ``lsmbench/device_idle.py``."""
+from lsmbench.device_idle import read  # noqa: F401
