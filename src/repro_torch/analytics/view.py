@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from ..core.csr import lexsort_edges, quantize_cap
 from ..core.store import Snapshot
 from ..core.types import BYTES_PER_EDGE, BYTES_PER_PROP
@@ -83,31 +84,37 @@ def _collect_sorted(snapshot: Snapshot):
     sources merge through the tournament; more are concatenated and sorted
     with ``lexsort_edges`` (the reference does that one sort with a host
     ``np.lexsort``; every (src, dst, ts) key is distinct, so both orders are
-    the same).  Sources with no record visible at τ are skipped."""
+    the same).  Sources with no record visible at τ are skipped.  The
+    collection and the merge are the ``analytics_view_collect`` and
+    ``analytics_view_merge`` spans."""
     tau = snapshot.tau
+    label = snapshot._store.obs_label
     sources = []
-    for (src, dst, ts, marker, prop, fid) in snapshot.run_record_tensors():
-        if src.shape[0] == 0 or not bool((ts <= tau).any()):
-            continue
-        rec = (src.to(_I32), dst.to(_I32), ts.to(_I32), marker.bool(),
-               prop.float())
-        if fid is None:  # MemGraph tier: arrival order
-            order = lexsort_edges(*rec[:3])
-            rec = tuple(c[order] for c in rec)
-        sources.append(rec)
+    with obs.REGISTRY.span("analytics_view_collect", store=label):
+        for (src, dst, ts, marker, prop,
+             fid) in snapshot.run_record_tensors():
+            if src.shape[0] == 0 or not bool((ts <= tau).any()):
+                continue
+            rec = (src.to(_I32), dst.to(_I32), ts.to(_I32), marker.bool(),
+                   prop.float())
+            if fid is None:  # MemGraph tier: arrival order
+                order = lexsort_edges(*rec[:3])
+                rec = tuple(c[order] for c in rec)
+            sources.append(rec)
     if not sources:
         z = torch.zeros(0, dtype=_I32, device=snapshot.device)
         return (z, z, z, torch.zeros(0, dtype=torch.bool, device=z.device),
                 torch.zeros(0, dtype=torch.float32, device=z.device))
     if len(sources) == 1:
         return sources[0]
-    if len(sources) <= TOURNAMENT_MAX_SOURCES:
-        MERGE_STATS.bump("kernel_merge")
-        return _merge_sources_tournament(sources)
-    MERGE_STATS.bump("host_lexsort")
-    cat = tuple(torch.cat([s[i] for s in sources]) for i in range(5))
-    order = lexsort_edges(*cat[:3])
-    return tuple(c[order] for c in cat)
+    with obs.REGISTRY.span("analytics_view_merge", store=label):
+        if len(sources) <= TOURNAMENT_MAX_SOURCES:
+            MERGE_STATS.bump("kernel_merge")
+            return _merge_sources_tournament(sources)
+        MERGE_STATS.bump("host_lexsort")
+        cat = tuple(torch.cat([s[i] for s in sources]) for i in range(5))
+        order = lexsort_edges(*cat[:3])
+        return tuple(c[order] for c in cat)
 
 
 def materialize_csr(snapshot: Snapshot, n_vertices: int) -> CSRView:

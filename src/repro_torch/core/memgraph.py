@@ -14,10 +14,12 @@ every key is resolved instead of a fixed 64 under ``lax.cond``.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Tuple
 
 import torch
 
+from .. import obs
 from .csr import lexsort_edges, stable_partition
 from .types import INVALID_VID, EdgeBatch, MemGraphState, StoreConfig, scalar
 
@@ -47,6 +49,15 @@ def empty_memgraph(cfg: StoreConfig, device) -> MemGraphState:
         ne=scalar(0, device))
 
 
+def step_span(mode: str, name: str, **labels):
+    """``obs.REGISTRY.span(name, **labels)`` for a step of an insert on the
+    paper's MemGraph path; nothing on the ablation paths (``mode`` other
+    than "memgraph"), whose steps are not timed."""
+    if mode != "memgraph":
+        return nullcontext()
+    return obs.REGISTRY.span(name, **labels)
+
+
 def _hash(v: torch.Tensor, hcap: int) -> torch.Tensor:
     """(uint32(v) * 2654435761 mod 2**32) mod hcap, as int64.  The product
     of two values below 2**32 may wrap int64, but its low 32 bits — the
@@ -61,7 +72,9 @@ def _find_or_insert_rows(htab_key, htab_row, n_rows, ukeys):
     Collision rule per round: every unresolved key whose current probe slot
     is empty proposes to claim it; the minimum unique-index wins
     (scatter-min); losers advance their probe.  Returns (htab_key, htab_row,
-    n_rows, row, is_new, ok) with fresh tables."""
+    n_rows, row, is_new, ok, rounds) with fresh tables; ``rounds`` counts
+    the claim rounds run, each ended by the host's read of
+    ``resolved.all()`` before the next."""
     u = ukeys.shape[0]
     hcap = htab_key.shape[0]
     dev = ukeys.device
@@ -72,9 +85,9 @@ def _find_or_insert_rows(htab_key, htab_row, n_rows, ukeys):
     row = torch.full((u,), -1, dtype=_I32, device=dev)
     is_new = torch.zeros(u, dtype=torch.bool, device=dev)
     resolved = ukeys == INVALID_VID
-    for _ in range(_MAX_PROBE_ROUNDS):
-        if bool(resolved.all()):
-            break
+    rounds = 0
+    while rounds < _MAX_PROBE_ROUNDS and not bool(resolved.all()):
+        rounds += 1
         pos = (base + probe) % hcap
         k = htab_key[pos]
         hit = ~resolved & (k == ukeys)
@@ -96,7 +109,7 @@ def _find_or_insert_rows(htab_key, htab_row, n_rows, ukeys):
         probe = torch.where(resolved, probe, probe + 1)
         n_rows = (n_rows + win.sum()).to(_I32)
     ok = resolved.all()
-    return htab_key, htab_row, n_rows, row, is_new, ok
+    return htab_key, htab_row, n_rows, row, is_new, ok, rounds
 
 
 def lookup_rows(mg: MemGraphState, keys: torch.Tensor) -> torch.Tensor:
@@ -151,64 +164,76 @@ def insert_batch(mg: MemGraphState, batch: EdgeBatch, *,
             ne=(mg.ne + batch.n).to(_I32))
         return new, (mg.ovf_n + batch.n) <= mg.ovf_cap
 
-    uniq, inv = torch.unique(srcv, sorted=True, return_inverse=True)
-    ukeys = torch.cat([uniq, torch.full((bc - uniq.shape[0],), INVALID_VID,
-                                        dtype=_I32, device=dev)])
-    htab_key, htab_row, n_rows, urow, is_new, hash_ok = _find_or_insert_rows(
-        mg.htab_key, mg.htab_row, mg.n_rows, ukeys)
-    seg_owner = _scatter(mg.seg_owner, urow.long(), ukeys,
-                         is_new & (urow < mg.nseg))
+    with step_span(mode, "store_apply_claim"):
+        uniq, inv = torch.unique(srcv, sorted=True, return_inverse=True)
+        ukeys = torch.cat([uniq, torch.full((bc - uniq.shape[0],),
+                                            INVALID_VID, dtype=_I32,
+                                            device=dev)])
+        (htab_key, htab_row, n_rows, urow, is_new, hash_ok,
+         rounds) = _find_or_insert_rows(mg.htab_key, mg.htab_row, mg.n_rows,
+                                        ukeys)
+    if mode == "memgraph":
+        obs.REGISTRY.histogram("store_apply_claim_rounds",
+                               lo=1).observe(rounds)
+    with step_span(mode, "store_apply_place"):
+        seg_owner = _scatter(mg.seg_owner, urow.long(), ukeys,
+                             is_new & (urow < mg.nseg))
 
-    row_e = torch.where(valid, urow[inv], -1)
+        row_e = torch.where(valid, urow[inv], -1)
 
-    # Arrival-order rank of each edge within its row (stable by position).
-    row_key = torch.where(valid, row_e, INVALID_VID)
-    order = torch.argsort(row_key, stable=True)
-    row_sorted = row_key[order]
-    first_idx = torch.searchsorted(row_sorted, row_sorted)
-    rank_sorted = (torch.arange(bc, device=dev) - first_idx).to(_I32)
-    rank = torch.empty(bc, dtype=_I32, device=dev)
-    rank[order] = rank_sorted
+        # Arrival-order rank of each edge within its row (stable by
+        # position).
+        row_key = torch.where(valid, row_e, INVALID_VID)
+        order = torch.argsort(row_key, stable=True)
+        row_sorted = row_key[order]
+        first_idx = torch.searchsorted(row_sorted, row_sorted)
+        rank_sorted = (torch.arange(bc, device=dev) - first_idx).to(_I32)
+        rank = torch.empty(bc, dtype=_I32, device=dev)
+        rank[order] = rank_sorted
 
-    row_c = row_e.clamp(0, mg.nseg - 1).long()
-    base_len = torch.where(valid, mg.seg_len[row_c], 0)
-    slot = base_len + rank
-    in_seg = valid & (slot < g)
-    # "array_only" (paper ablation: adjacency arrays only) shares this
-    # layout; the store charges the compact-array growth movement.  A row
-    # past the pool (an overflowing batch, reported by ``ok``) is dropped.
-    seg_w = in_seg & (row_e >= 0) & (row_e < mg.nseg)
-    flat = (row_c * g + slot.clamp(max=g - 1)).long()
-    seg_dst = _scatter(mg.seg_dst.reshape(-1), flat, batch.dst, seg_w)
-    seg_ts = _scatter(mg.seg_ts.reshape(-1), flat, batch.ts, seg_w)
-    seg_marker = _scatter(mg.seg_marker.reshape(-1), flat, batch.marker,
-                          seg_w)
-    seg_prop = _scatter(mg.seg_prop.reshape(-1), flat, batch.prop, seg_w)
+        row_c = row_e.clamp(0, mg.nseg - 1).long()
+        base_len = torch.where(valid, mg.seg_len[row_c], 0)
+        slot = base_len + rank
+        in_seg = valid & (slot < g)
+        # "array_only" (paper ablation: adjacency arrays only) shares this
+        # layout; the store charges the compact-array growth movement.  A
+        # row past the pool (an overflowing batch, reported by ``ok``) is
+        # dropped.
+        seg_w = in_seg & (row_e >= 0) & (row_e < mg.nseg)
+        flat = (row_c * g + slot.clamp(max=g - 1)).long()
+        seg_dst = _scatter(mg.seg_dst.reshape(-1), flat, batch.dst, seg_w)
+        seg_ts = _scatter(mg.seg_ts.reshape(-1), flat, batch.ts, seg_w)
+        seg_marker = _scatter(mg.seg_marker.reshape(-1), flat, batch.marker,
+                              seg_w)
+        seg_prop = _scatter(mg.seg_prop.reshape(-1), flat, batch.prop,
+                            seg_w)
 
-    is_ovf = valid & ~in_seg
-    opos = (mg.ovf_n + torch.cumsum(is_ovf.to(_I32), 0) - 1).long()
-    ok_o = is_ovf & (opos < mg.ovf_cap)
-    n_ovf = is_ovf.sum().to(_I32)
+        is_ovf = valid & ~in_seg
+        opos = (mg.ovf_n + torch.cumsum(is_ovf.to(_I32), 0) - 1).long()
+        ok_o = is_ovf & (opos < mg.ovf_cap)
+        n_ovf = is_ovf.sum().to(_I32)
 
-    seg_len = mg.seg_len.clone()
-    inc = valid & (row_e < mg.nseg) & (row_e >= 0)
-    seg_len.index_add_(0, row_c[inc], torch.ones_like(row_c[inc], dtype=_I32))
+        seg_len = mg.seg_len.clone()
+        inc = valid & (row_e < mg.nseg) & (row_e >= 0)
+        seg_len.index_add_(0, row_c[inc],
+                           torch.ones_like(row_c[inc], dtype=_I32))
 
-    new = MemGraphState(
-        htab_key=htab_key, htab_row=htab_row,
-        seg_owner=seg_owner, seg_len=seg_len,
-        seg_dst=seg_dst.reshape(mg.seg_dst.shape),
-        seg_ts=seg_ts.reshape(mg.seg_ts.shape),
-        seg_marker=seg_marker.reshape(mg.seg_marker.shape),
-        seg_prop=seg_prop.reshape(mg.seg_prop.shape),
-        ovf_src=_scatter(mg.ovf_src, opos, batch.src, ok_o),
-        ovf_dst=_scatter(mg.ovf_dst, opos, batch.dst, ok_o),
-        ovf_ts=_scatter(mg.ovf_ts, opos, batch.ts, ok_o),
-        ovf_marker=_scatter(mg.ovf_marker, opos, batch.marker, ok_o),
-        ovf_prop=_scatter(mg.ovf_prop, opos, batch.prop, ok_o),
-        n_rows=n_rows, ovf_n=(mg.ovf_n + n_ovf).to(_I32),
-        ne=(mg.ne + batch.n).to(_I32))
-    ok = hash_ok & (n_rows <= mg.nseg) & ((mg.ovf_n + n_ovf) <= mg.ovf_cap)
+        new = MemGraphState(
+            htab_key=htab_key, htab_row=htab_row,
+            seg_owner=seg_owner, seg_len=seg_len,
+            seg_dst=seg_dst.reshape(mg.seg_dst.shape),
+            seg_ts=seg_ts.reshape(mg.seg_ts.shape),
+            seg_marker=seg_marker.reshape(mg.seg_marker.shape),
+            seg_prop=seg_prop.reshape(mg.seg_prop.shape),
+            ovf_src=_scatter(mg.ovf_src, opos, batch.src, ok_o),
+            ovf_dst=_scatter(mg.ovf_dst, opos, batch.dst, ok_o),
+            ovf_ts=_scatter(mg.ovf_ts, opos, batch.ts, ok_o),
+            ovf_marker=_scatter(mg.ovf_marker, opos, batch.marker, ok_o),
+            ovf_prop=_scatter(mg.ovf_prop, opos, batch.prop, ok_o),
+            n_rows=n_rows, ovf_n=(mg.ovf_n + n_ovf).to(_I32),
+            ne=(mg.ne + batch.n).to(_I32))
+        ok = (hash_ok & (n_rows <= mg.nseg)
+              & ((mg.ovf_n + n_ovf) <= mg.ovf_cap))
     return new, ok
 
 

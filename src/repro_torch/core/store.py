@@ -453,6 +453,9 @@ class LSMGraph:
         self.versions = VersionChain()
         self.obs_label = obs_label or f"s{next(_STORE_ORDINAL)}"
         self.io = IOCounters().bind(store=self.obs_label)
+        # Registered with the store, as the reference's are, so an idle
+        # store exports them; ``_apply``'s and ``_resolve_batch``'s spans
+        # observe into them.
         self._obs_apply = obs.histogram("store_apply_seconds",
                                         store=self.obs_label)
         self._obs_resolve = obs.histogram("read_resolve_seconds",
@@ -611,8 +614,8 @@ class LSMGraph:
                         "background flush did not relieve a hard-full "
                         "MemGraph within 60 s")
             marker = np.full(n, delete, bool)
-            t_chunk = time.perf_counter()
-            with self._write_lock:
+            with (obs.REGISTRY.span("store_apply", store=self.obs_label),
+                  self._write_lock):
                 st = self._state
                 with self._lock:
                     ts = np.arange(self._ts, self._ts + n, dtype=np.int32)
@@ -636,7 +639,6 @@ class LSMGraph:
                     self.io.flush_write += n  # nominal movement charge
                 with self._lock:
                     self._swap_state(mem=new_mem, tau=self._ts)
-            self._obs_apply.observe(time.perf_counter() - t_chunk)
             self._obs_ingest_bytes.inc(n * _REC_BYTES)
             (self._obs_edges_del if delete else self._obs_edges_ins).inc(n)
             if allow_flush and mg_mod.memgraph_should_flush(
@@ -648,15 +650,20 @@ class LSMGraph:
         """Pad one <= batch_cap chunk into an EdgeBatch on the device and
         insert it into the given MemGraph tier: ``(new_mem, ok)``."""
         bc, dev = self.cfg.batch_cap, self.device
+        mode = self.cfg.memcache_mode
 
         def up(a):
             return torch.from_numpy(_pad(a, bc)).to(dev, copy=True)
 
-        batch = EdgeBatch(src=up(s), dst=up(d), ts=up(t), prop=up(p),
-                          marker=up(m), n=scalar(len(s), dev))
-        new_mem, ok = mg_mod.insert_batch(mem, batch,
-                                          mode=self.cfg.memcache_mode)
-        return new_mem, bool(ok)
+        with mg_mod.step_span(mode, "store_apply_upload",
+                              store=self.obs_label):
+            batch = EdgeBatch(src=up(s), dst=up(d), ts=up(t), prop=up(p),
+                              marker=up(m), n=scalar(len(s), dev))
+        new_mem, ok = mg_mod.insert_batch(mem, batch, mode=mode)
+        with mg_mod.step_span(mode, "store_apply_wait",
+                              store=self.obs_label):
+            ok = bool(ok)
+        return new_mem, ok
 
     def _ingest_replay(self, src, dst, ts, marker, prop) -> None:
         """Recovery-only ingest: re-insert WAL records with their ORIGINAL
@@ -770,14 +777,16 @@ class LSMGraph:
     def _wrap(self, run: csr.CSRRunArrays, level: int) -> RunFile:
         """Materialize a RunFile (fid allocation under its own lock).
         Registration in ``runs_by_fid`` happens at commit time."""
-        nv, ne = (int(x) for x in torch.stack([run.nv, run.ne]).tolist())
-        if nv > 0:
-            vk = run.vkeys[:nv].cpu().numpy()
-            min_v, max_v = int(vk[0]), int(vk[-1])
-            presence = filters.from_vkeys(vk)
-        else:
-            min_v, max_v = 0, -1
-            presence = filters.from_vkeys(np.empty(0, np.int64))
+        with obs.REGISTRY.span("store_run_seal", store=self.obs_label):
+            nv, ne = (int(x) for x in
+                      torch.stack([run.nv, run.ne]).tolist())
+            if nv > 0:
+                vk = run.vkeys[:nv].cpu().numpy()
+                min_v, max_v = int(vk[0]), int(vk[-1])
+                presence = filters.from_vkeys(vk)
+            else:
+                min_v, max_v = 0, -1
+                presence = filters.from_vkeys(np.empty(0, np.int64))
         return RunFile(fid=self._new_fid(), level=level, arrays=run,
                        min_vid=min_v, max_vid=max_v, created_ts=self._ts,
                        nv=nv, ne=ne, io=self.io, presence=presence)
@@ -857,8 +866,10 @@ class LSMGraph:
         tau_min = self.versions.min_live_tau(self._ts)
         vcap = csr.quantize_cap(max(tot_e, 1))
         is_bottom = target_level == self.cfg.n_levels - 1
-        merged = csr.merge_runs(all_runs, tau_min, vcap=vcap,
-                                is_bottom=is_bottom)
+        with obs.REGISTRY.span("store_compaction_merge",
+                               store=self.obs_label):
+            merged = csr.merge_runs(all_runs, tau_min, vcap=vcap,
+                                    is_bottom=is_bottom)
         new_segs = self._resegment(merged, target_level)
         written = sum(r.nbytes for r in new_segs)
         self.io.compaction_write += written
@@ -1267,20 +1278,10 @@ class Snapshot:
 
     def _resolve_batch(self, u: np.ndarray, pad_to: Optional[int] = None):
         """Timed wrapper over ``_resolve_batch_impl``: every device resolve
-        lands in the store's ``read_resolve_seconds`` histogram."""
-        t0 = time.perf_counter()
-        out = self._resolve_batch_impl(u, pad_to)
-        dt = time.perf_counter() - t0
-        self._store._obs_resolve.observe(dt)
+        is a ``read_resolve`` span of the store."""
+        with obs.REGISTRY.span("read_resolve", store=self._store.obs_label):
+            out = self._resolve_batch_impl(u, pad_to)
         self._store._obs_read_queries.inc(len(u))
-        ring = obs.REGISTRY.trace_ring  # one check; None = tracing off
-        if ring is not None:
-            ring.append({"name": "read_resolve",
-                         "labels": {"store": self._store.obs_label,
-                                    "queries": str(len(u))},
-                         "t0": t0, "dur": dt, "depth": 0,
-                         "thread": threading.current_thread().name,
-                         "ok": True})
         return out
 
     def _visibility(self, bb: _ReadBackbone, u_j: torch.Tensor):
@@ -1327,52 +1328,59 @@ class Snapshot:
                 queries=u if _READ_TOURNAMENT_MAX_K <= 0 else None)
         u_pad = np.full(bp, INVALID_VID, np.int32)
         u_pad[:B] = u
-        u_j = torch.from_numpy(u_pad).to(dev)
         if _READ_TOURNAMENT_MAX_K <= 0:
-            return self._resolve_batch_legacy(u, u_j)
-        bb = self._get_backbone()
-        mem = self.state.mem
-        have_mem = int(mem.ne) != 0
+            return self._resolve_batch_legacy(
+                u, torch.from_numpy(u_pad).to(dev))
         store = self._store
-        if bb.src.shape[0] == 0 and not have_mem:
-            store._obs_read_probes.inc(0)
-            return (np.zeros(B + 1, np.int64), np.empty(0, np.int64),
-                    np.empty(0, np.float32))
-        parts = []
-        n_run = 0
-        probed = int(have_mem)
-        if bb.src.shape[0]:
-            vis = self._visibility(bb, u_j)
-            if bb.fwords is not None and _read_filters_enabled():
-                # One membership test of the whole query vector against
-                # every run's filter, ANDed into the visibility matrix so
-                # filtered-out pairs are dropped before rank + annihilation.
-                # Zero false negatives, so results stay byte-identical.
-                fhit = kops.presence_matrix(bb.fwords, bb.foffs, bb.fmasks,
-                                            u_j)
-                pre = int(vis[:, :B].sum())
-                vis &= fhit
-                store._obs_filter_checked.inc(pre)
-                store._obs_filter_skipped.inc(pre - int(vis[:, :B].sum()))
-            if bb.run_fid.shape[0]:
-                probed += int(vis[:, :B].any(dim=1).sum())
-            qid, live, n_run_t = _backbone_resolve(
-                bb.src, bb.dst, bb.ts, bb.rid, bb.marker, u_j, vis,
-                self.tau, B)
-            n_run = int(n_run_t)
-            idx = torch.nonzero(live).reshape(-1)
-            parts.append((qid[idx], bb.dst[idx], bb.prop[idx]))
-        store._obs_read_probes.inc(probed)
-        if have_mem:
-            mq, md, mp, pq, pd, n_present = _mem_resolve(
-                *mg_mod.scan_vertices_batch(mem, u_j), self.tau, B)
-            if parts:
-                q, d, p = parts[0]
-                keep = ~_suppressed(q, d, pq, pd, n_present)
-                parts[0] = (q[keep], d[keep], p[keep])
-            parts.append((mq, md, mp))
-        parts = [tuple(x.cpu().numpy() for x in part) for part in parts]
-        return self._finish_resolve(parts, n_run, B)
+        label = store.obs_label
+        with obs.REGISTRY.span("read_resolve_sealed", store=label):
+            u_j = torch.from_numpy(u_pad).to(dev)
+            bb = self._get_backbone()
+            mem = self.state.mem
+            have_mem = int(mem.ne) != 0
+            if bb.src.shape[0] == 0 and not have_mem:
+                store._obs_read_probes.inc(0)
+                return (np.zeros(B + 1, np.int64), np.empty(0, np.int64),
+                        np.empty(0, np.float32))
+            parts = []
+            n_run = 0
+            probed = int(have_mem)
+            if bb.src.shape[0]:
+                vis = self._visibility(bb, u_j)
+                if bb.fwords is not None and _read_filters_enabled():
+                    # One membership test of the whole query vector against
+                    # every run's filter, ANDed into the visibility matrix
+                    # so filtered-out pairs are dropped before rank +
+                    # annihilation.  Zero false negatives, so results stay
+                    # byte-identical.
+                    fhit = kops.presence_matrix(bb.fwords, bb.foffs,
+                                                bb.fmasks, u_j)
+                    pre = int(vis[:, :B].sum())
+                    vis &= fhit
+                    store._obs_filter_checked.inc(pre)
+                    store._obs_filter_skipped.inc(
+                        pre - int(vis[:, :B].sum()))
+                if bb.run_fid.shape[0]:
+                    probed += int(vis[:, :B].any(dim=1).sum())
+                qid, live, n_run_t = _backbone_resolve(
+                    bb.src, bb.dst, bb.ts, bb.rid, bb.marker, u_j, vis,
+                    self.tau, B)
+                n_run = int(n_run_t)
+                idx = torch.nonzero(live).reshape(-1)
+                parts.append((qid[idx], bb.dst[idx], bb.prop[idx]))
+            store._obs_read_probes.inc(probed)
+        with obs.REGISTRY.span("read_resolve_mem", store=label):
+            if have_mem:
+                mq, md, mp, pq, pd, n_present = _mem_resolve(
+                    *mg_mod.scan_vertices_batch(mem, u_j), self.tau, B)
+                if parts:
+                    q, d, p = parts[0]
+                    keep = ~_suppressed(q, d, pq, pd, n_present)
+                    parts[0] = (q[keep], d[keep], p[keep])
+                parts.append((mq, md, mp))
+        with obs.REGISTRY.span("read_resolve_host", store=label):
+            parts = [tuple(x.cpu().numpy() for x in part) for part in parts]
+            return self._finish_resolve(parts, n_run, B)
 
     def _resolve_batch_legacy(self, u: np.ndarray, u_j: torch.Tensor):
         """Per-resolve concat + one segmented lexsort (the pre-spine read

@@ -28,16 +28,34 @@ unit suffix.
 layer — readers go through the exporter, never by reaching into another
 layer's instruments:
 
-* ``store_*``  — core/store.py + core/concurrent.py: apply/flush/
-  compaction spans, ``store_state_publish_total``, ``store_l0_depth`` and
-  ``store_level_runs`` gauges, background-thread error counts.
+* ``store_*``  — core/store.py + core/concurrent.py (+ core/memgraph.py
+  for the insert's steps): apply/flush/compaction spans,
+  ``store_state_publish_total``, ``store_l0_depth`` and
+  ``store_level_runs`` gauges, background-thread error counts.  The
+  apply's steps are child spans of ``store_apply``: ``store_apply_upload``
+  (padding and the chunk's host-to-device copies),
+  ``store_apply_claim`` (``torch.unique`` and the hashmap's claim rounds;
+  no labels, the store is not at hand in ``memgraph.py``),
+  ``store_apply_place`` (rank within row, the segment and overflow
+  scatters; no labels) and ``store_apply_wait`` (``bool(ok)``, where the
+  host waits for the insert's device work), with the histogram
+  ``store_apply_claim_rounds`` (rounds a chunk, no labels).  A
+  compaction's ``csr.merge_runs`` is ``store_compaction_merge``; a run's
+  sealing (``_wrap``: counts and vertex keys to the host, the presence
+  filter) is ``store_run_seal``, inside a flush or a compaction.  The
+  ablation modes (``memcache_mode``) time no steps.
 * ``storage_*`` — storage/wal.py + storage/engine.py: WAL append/fsync
   latency, group-commit batch size, segment write/load/evict, scrubber
   verdicts, quarantine counts.
 * ``shard_*``  — shard/store.py: per-shard fencing state, ack latency,
   degraded-range count, routed-batch fan-out.
 * ``read_*``   — the read path (core/store.py resolve + core/types.py
-  prefetch): resolve batch latency, prefetch hit/miss, and the presence-
+  prefetch): resolve batch latency (``read_resolve``, with the spine
+  path's steps ``read_resolve_sealed`` — query upload to the sealed
+  tier's parts —, ``read_resolve_mem`` — the active MemGraph and the
+  suppression of sealed winners — and ``read_resolve_host`` — the parts to
+  the host and the final merge there; the legacy path times no steps),
+  prefetch hit/miss, and the presence-
   filter counters — ``read_filter_checked_total`` ((run, query) pairs
   tested against a run's vertex-presence filter),
   ``read_filter_skipped_total`` (pairs the filter proved absent — device
@@ -52,6 +70,11 @@ layer's instruments:
   — a closed enum), ``compaction_sched_compactions_total`` (``shard=``),
   and the ``compaction_sched_interval_seconds`` gauge tracking the
   backoff-widened tick.  Written only by the scheduler thread.
+* ``analytics_*`` — analytics/view.py: ``materialize_csr``'s record
+  collection (``analytics_view_collect``: the runs' record tensors and
+  the per-source loop, one span for the loop) and its merge
+  (``analytics_view_merge``: the tournament, or the concatenation and
+  its sort), both with ``store=``.
 * ``io_*``     — the ``IOCounters`` mirror (core/types.py): byte counters
   kept byte-compatible with the legacy dataclass API.
 * ``merge_*``  — the ``MERGE_STATS`` view (kernels/merge.py): kernel-vs-
@@ -88,7 +111,12 @@ quarantine, rebuild, shard fence).  ``obs/trace_export.py`` converts the
 ring to Chrome trace-event / Perfetto JSON (spans → ``ph:"X"`` duration
 events per thread, instants → ``ph:"i"`` markers, families → ``cat``,
 failed spans carry ``args.ok: false``); ``graph_service --trace FILE``
-writes it at exit.
+writes it at exit.  Independently of the ring, while ``torch.profiler``
+records, every span is also a ``record_function`` range named as the
+span (labels left out), so the profiler's trace nests the program's
+spans with the host ops and device work they cover on one clock.  No
+span synchronizes: a span's host time includes only the waits the code
+already has; device time comes from the device trace.
 
 **Label cardinality.**  Labels multiply series; every label must be
 bounded by configuration, never by data.  Allowed: store ordinal
@@ -101,11 +129,18 @@ belongs in a histogram observation or a trace event, not a label.
 instance-level attributes), so hot paths pay one lock + one add — never
 a registry map lookup.  The span hot path pays two ``perf_counter``
 calls and one histogram observe; the trace ring adds exactly one
-attribute check while disabled.  ``tests/test_torch_obs.py`` enforces
+attribute check while disabled, and so does the profiler range (plus one
+``None`` check on exit); the range is built only while a profiler
+records.  ``tests/test_torch_obs.py`` enforces
 the per-op bound and the < 2% ingest overhead budget.
 """
-from .registry import (Counter, Gauge, Histogram, MetricRegistry, Span)
+import torch.autograd.profiler as _torch_profiler
+
+from .registry import (Counter, Gauge, Histogram, MetricRegistry, Span,
+                       follow_profiler)
 from .export import SCHEMA, Reporter, export_json, export_prometheus
+
+follow_profiler(_torch_profiler)
 
 #: The process-wide default registry every production call site uses.
 REGISTRY = MetricRegistry()

@@ -21,7 +21,10 @@ Cost model (the "near-zero when nothing is attached" contract):
   * ``span(...)``: two ``perf_counter`` calls + one histogram observe; the
     trace ring costs ONE attribute check (``registry.trace_ring is None``)
     when tracing is disabled — events are built only while a ring is
-    attached.  ``tests/test_obs.py`` enforces the per-op bound.
+    attached — and the profiler range one more (``_is_profiler_enabled``
+    of the module ``follow_profiler`` installed): a
+    ``record_function`` range is built only while ``torch.profiler``
+    records.  ``tests/test_obs.py`` enforces the per-op bound.
 """
 from __future__ import annotations
 
@@ -32,6 +35,29 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 LabelKey = Tuple[Tuple[str, str], ...]
+
+
+class _NoProfiler:
+    """Stands in for ``torch.autograd.profiler`` until ``follow_profiler``
+    installs it: no profiler ever records."""
+
+    _is_profiler_enabled = False
+
+
+#: Where a span learns whether ``torch.profiler`` records
+#: (``_is_profiler_enabled``) and takes the range it then enters
+#: (``record_function``).
+_profiler = _NoProfiler
+
+
+def follow_profiler(module) -> None:
+    """Make every span also a ``module.record_function`` range, named as
+    the span, while ``module._is_profiler_enabled`` is true: the program's
+    spans then lie on the profiler's clock, beside the device's work.
+    ``repro_torch.obs`` installs ``torch.autograd.profiler``; this module
+    imports nothing of torch itself."""
+    global _profiler
+    _profiler = module
 
 
 def _label_key(labels: Dict[str, object]) -> LabelKey:
@@ -222,13 +248,18 @@ class Span:
     while a trace ring is attached — appends a trace event carrying name,
     labels, thread, nesting depth, wall window, and outcome.
 
+    While ``torch.profiler`` records (``follow_profiler``), the span is
+    also a ``record_function`` range of its name, without labels, so the
+    profiler's trace shows it around the host work and the device work it
+    launches.
+
     A span that exits via an exception records ``ok: False`` on its trace
     event and bumps ``<name>_errors_total`` (same labels), so failed
     flushes/compactions are visible in both traces and counters; the
     exception itself always propagates."""
 
     __slots__ = ("_reg", "_hist", "name", "labels", "t0", "duration",
-                 "_depth", "ok")
+                 "_depth", "ok", "_range")
 
     def __init__(self, reg: "MetricRegistry", hist: Histogram, name: str,
                  labels: Dict[str, str]):
@@ -240,17 +271,23 @@ class Span:
         self.duration = 0.0
         self._depth = 0
         self.ok = True
+        self._range = None
 
     def __enter__(self) -> "Span":
         if self._reg.trace_ring is not None:  # the one hot-path check
             tls = self._reg._tls
             self._depth = getattr(tls, "depth", 0)
             tls.depth = self._depth + 1
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         dt = time.perf_counter() - self.t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         self.duration = dt
         self._hist.observe(dt)
         if exc_type is not None:

@@ -39,8 +39,19 @@ from repro_torch.obs.trace_export import (export_chrome_trace,  # noqa: E402
                                           to_chrome_trace)
 from repro_torch.storage import open_store  # noqa: E402
 
-#: Series the port adds beyond the reference's: the spine build's span.
-PORT_ONLY = {("read", "spine_build_seconds")}
+#: Series the port adds beyond the reference's: the spine build's span,
+#: and the step spans of the apply, the compaction, the run seal, the
+#: resolve and the view build.
+PORT_ONLY = {("read", "spine_build_seconds"),
+             ("store", "apply_upload_seconds"),
+             ("store", "apply_wait_seconds"),
+             ("store", "compaction_merge_seconds"),
+             ("store", "run_seal_seconds"),
+             ("read", "resolve_sealed_seconds"),
+             ("read", "resolve_mem_seconds"),
+             ("read", "resolve_host_seconds"),
+             ("analytics", "view_collect_seconds"),
+             ("analytics", "view_merge_seconds")}
 
 
 @pytest.fixture(autouse=True)
