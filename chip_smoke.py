@@ -555,7 +555,8 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
     t_ingest = time.perf_counter() - t0
     log(f"stream: {n_dropped} repeated deletes of deleted edges dropped")
     flush = obs.REGISTRY.histogram("store_flush_seconds", store=label)
-    apply_s = obs.REGISTRY.histogram("store_apply_seconds", store=label).sum
+    apply = obs.REGISTRY.histogram("store_apply_seconds", store=label)
+    apply_s = apply.sum
     comp = obs.REGISTRY.find("store_compaction_seconds", store=label)
     compactions = {h.labels["level"]: h.count for h in comp}
     comp_s = {h.labels["level"]: round(h.sum, 2) for h in comp}
@@ -616,14 +617,68 @@ def main_path(dev, cfg, n_edges: int, n_queries: int, seed: int, log=print):
     log(f"peak device memory: {peak:.2f} GiB")
     return dict(store=store, query_vertices=queries, oracle=oracle,
                 records=n_ops, deletes_dropped=n_dropped, ingest_s=t_ingest,
-                apply_s=apply_s, flush_s=flush.sum, compaction_s=comp_s,
-                flushes=flushes, compactions=compactions, level_sizes=sizes,
+                apply_s=apply_s, apply_chunks=apply.count,
+                flush_s=flush.sum, compaction_s=comp_s, flushes=flushes,
+                compactions=compactions, level_sizes=sizes,
                 runs=runs, spine_ms=t_spine * 1e3, spine_runs=spine_runs,
                 spine_rounds=spine_rounds,
                 resolve_ms_per_chunk=resolve_ms, queries=len(queries),
                 peak_gib=peak,
                 stream=dict(src=s_all, dst=d_all, ins=ins_all, prop=p_all,
                             sizes=[len(x) for x in s_parts]))
+
+
+def check_hash_claim(store, stream):
+    """The MemGraph insert's claim step (``csrc/hash_claim.cu`` after its
+    ``torch.sort``) on phase 3's first insert chunk against phase 3's
+    active table, byte-equal to its plain version on all nine outputs."""
+    import torch
+    from repro_torch.kernels import hash_claim as hc
+    mg = store._state.mem
+    bc = store.cfg.batch_cap
+    ends = np.cumsum(stream["sizes"])
+    first = next(i for i, e in enumerate(ends)
+                 if stream["sizes"][i] == bc and stream["ins"][e - 1])
+    keys = torch.from_numpy(
+        stream["src"][ends[first] - bc:ends[first]].astype(np.int32)).to(
+            mg.htab_key.device)
+
+    def kern():
+        return hc.claim_rows_cuda(mg.htab_key, mg.htab_row, mg.n_rows, keys)
+
+    def plain():
+        return hc.claim_rows_ref(mg.htab_key, mg.htab_row, mg.n_rows, keys)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    names = ("ukeys", "inv", "htab_key", "htab_row", "n_rows", "row",
+             "is_new", "ok", "rounds")
+    for name, g, w in zip(names, got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"hash_claim kernel differs from plain "
+                                 f"in {name}")
+    hcap, u = mg.htab_key.shape[0], keys.shape[0]
+    n_unique = int((got[0] != hc.INVALID_VID).sum())
+    rounds = int(got[8])
+    # What the function needs: the two tables read and written (4 x 4 B a
+    # slot), and per key the sorted keys and their permutation in, the
+    # unique keys, the inverse, the rows and the new flags out.
+    per_key = sum(t.element_size() for t in (keys, got[1], got[0], got[1],
+                                             got[5], got[6]))
+    # A hash, a probe and a compare (~10 ops) a unique key a round.
+    t_bound, by = bound(16 * hcap + per_key * u, 10 * n_unique * rounds)
+    return dict(
+        name="hash_claim", route="cuda",
+        source="src/repro_torch/csrc/hash_claim.cu",
+        replaces="src/repro/core/memgraph.py:63",
+        max_abs_err=0,
+        ms=time_ms(kern, iters=50),
+        device_ms=device_ms(kern, "hash_claim", iters=50),
+        plain_ms=time_ms(plain, iters=3, warmup=1),
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+        shape=f"{u} keys ({n_unique} unique, {int(got[6].sum())} new, "
+              f"{rounds} rounds) into {hcap} slots holding "
+              f"{int(mg.n_rows)} rows")
 
 
 def check_merge_pairs(store, log=print):
@@ -3694,8 +3749,12 @@ def main(argv=None) -> int:
     stats = main_path(dev, store_config(), args.edges, 1 << 16, args.seed)
     launches = {"store": ops.launch_counts()}
     print(f"main path (store) launches: {launches['store']}")
-    need_launches(launches["store"], ("presence_matrix", "merge_pairs"),
-                  "the store's path")
+    need_launches(launches["store"], ("presence_matrix", "merge_pairs",
+                                      "hash_claim"), "the store's path")
+    if launches["store"]["hash_claim"] != stats["apply_chunks"]:
+        raise AssertionError(
+            f"hash_claim launched {launches['store']['hash_claim']} times "
+            f"for {stats['apply_chunks']} chunks applied (want one a chunk)")
     got_rounds = (launches["store"]["merge_pairs"],
                   launches["store"]["merge_perm"])
     if got_rounds != (stats["spine_rounds"], 0):
@@ -3709,11 +3768,12 @@ def main(argv=None) -> int:
     profile_read(store, queries, dev)
     with _uncounted():
         rows.append(check_merge_pairs(store))
-    r = rows[-1]
-    print(f"kernel {r['name']} ({r['shape']}): byte-equal to plain; "
-          f"{r['ms']:.3f} ms ({r['device_ms']:.3f} ms device), plain "
-          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}), library none [{smi}]")
+        rows.append(check_hash_claim(store, stream))
+    for r in rows[-2:]:
+        print(f"kernel {r['name']} ({r['shape']}): byte-equal to plain; "
+              f"{r['ms']:.4f} ms ({r['device_ms']:.4f} ms device), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library none [{smi}]")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -3914,7 +3974,7 @@ def main(argv=None) -> int:
             print(f"kernel {r['name']}: {r['note']} [{smi}]")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     phase_of = {"presence_matrix": "store", "merge_perm": "store",
-                "merge_pairs": "store",
+                "merge_pairs": "store", "hash_claim": "store",
                 "gather_segsum": "analytics", "gather_segmin": "analytics",
                 "gather_segsum_runs": "analytics",
                 "batched_searchsorted": "fig16",

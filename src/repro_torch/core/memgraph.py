@@ -9,8 +9,9 @@ the ones it was given — because published store states and snapshots keep
 pointing at the old tier.  Out-of-range indices are masked before every
 scatter and clamped before every gather, where the JAX package relies on
 XLA's drop/clamp semantics.  Row allocation matches the reference slot for
-slot: the hashmap claim rounds are the same rounds, run on the host until
-every key is resolved instead of a fixed 64 under ``lax.cond``.
+slot: the hashmap claim rounds are the same rounds
+(``kernels/hash_claim.py``: one kernel launch on the card, a host loop on
+the CPU).
 """
 from __future__ import annotations
 
@@ -20,11 +21,10 @@ from typing import Tuple
 import torch
 
 from .. import obs
+from ..kernels import hash_claim as _claim
 from .csr import lexsort_edges, stable_partition
 from .types import INVALID_VID, EdgeBatch, MemGraphState, StoreConfig, scalar
 
-_HASH_MULT = 2654435761
-_MAX_PROBE_ROUNDS = 64
 _I32 = torch.int32
 
 
@@ -58,67 +58,13 @@ def step_span(mode: str, name: str, **labels):
     return obs.REGISTRY.span(name, **labels)
 
 
-def _hash(v: torch.Tensor, hcap: int) -> torch.Tensor:
-    """(uint32(v) * 2654435761 mod 2**32) mod hcap, as int64.  The product
-    of two values below 2**32 may wrap int64, but its low 32 bits — the
-    only ones kept — are exact under two's-complement wraparound."""
-    x = (v.to(torch.int64) & 0xFFFFFFFF) * _HASH_MULT
-    return (x & 0xFFFFFFFF) % hcap
-
-
-def _find_or_insert_rows(htab_key, htab_row, n_rows, ukeys):
-    """Vectorized open-addressing find-or-insert for a batch of *unique* keys.
-
-    Collision rule per round: every unresolved key whose current probe slot
-    is empty proposes to claim it; the minimum unique-index wins
-    (scatter-min); losers advance their probe.  Returns (htab_key, htab_row,
-    n_rows, row, is_new, ok, rounds) with fresh tables; ``rounds`` counts
-    the claim rounds run, each ended by the host's read of
-    ``resolved.all()`` before the next."""
-    u = ukeys.shape[0]
-    hcap = htab_key.shape[0]
-    dev = ukeys.device
-    base = _hash(ukeys, hcap)
-    uidx = torch.arange(u, dtype=_I32, device=dev)
-    htab_key, htab_row = htab_key.clone(), htab_row.clone()
-    probe = torch.zeros(u, dtype=torch.int64, device=dev)
-    row = torch.full((u,), -1, dtype=_I32, device=dev)
-    is_new = torch.zeros(u, dtype=torch.bool, device=dev)
-    resolved = ukeys == INVALID_VID
-    rounds = 0
-    while rounds < _MAX_PROBE_ROUNDS and not bool(resolved.all()):
-        rounds += 1
-        pos = (base + probe) % hcap
-        k = htab_key[pos]
-        hit = ~resolved & (k == ukeys)
-        row = torch.where(hit, htab_row[pos], row)
-        resolved = resolved | hit
-        empty = ~resolved & (k == INVALID_VID)
-        # Claim round: scatter-min of unique-index into per-slot owner array.
-        owner = torch.full((hcap,), u, dtype=_I32, device=dev)
-        owner.scatter_reduce_(0, pos[empty], uidx[empty], "amin")
-        win = empty & (owner[pos] == uidx)
-        new_row = (n_rows + torch.cumsum(win.to(_I32), 0) - 1).to(_I32)
-        row = torch.where(win, new_row, row)
-        wpos = pos[win]
-        htab_key[wpos] = ukeys[win]
-        htab_row[wpos] = new_row[win]
-        resolved = resolved | win
-        is_new = is_new | win
-        # Unresolved keys saw either a foreign key or lost a claim: advance.
-        probe = torch.where(resolved, probe, probe + 1)
-        n_rows = (n_rows + win.sum()).to(_I32)
-    ok = resolved.all()
-    return htab_key, htab_row, n_rows, row, is_new, ok, rounds
-
-
 def lookup_rows(mg: MemGraphState, keys: torch.Tensor) -> torch.Tensor:
     """Pure lookup: row per key, -1 if absent."""
     hcap = mg.hcap
-    base = _hash(keys, hcap)
+    base = _claim.hash_slots(keys, hcap)
     row = torch.full(keys.shape, -1, dtype=_I32, device=keys.device)
     resolved = keys == INVALID_VID
-    for r in range(_MAX_PROBE_ROUNDS):
+    for r in range(_claim.MAX_PROBE_ROUNDS):
         if bool(resolved.all()):
             break
         pos = (base + r) % hcap
@@ -143,6 +89,16 @@ def insert_batch(mg: MemGraphState, batch: EdgeBatch, *,
 
     mode: "memgraph" (paper design), "array_only" / "skiplist_only"
     (Fig. 15 ablation variants)."""
+    new, ok, _rounds = insert_batch_counted(mg, batch, mode=mode)
+    return new, ok
+
+
+def insert_batch_counted(mg: MemGraphState, batch: EdgeBatch, *,
+                         mode: str = "memgraph"):
+    """``insert_batch`` that also returns the hashmap's claim rounds:
+    ``(new_state, ok_flag, rounds)``, ``rounds`` a 0-d int32 tensor on the
+    batch's device (0 on the "skiplist_only" path, which claims no row).
+    On the card the claim step reads nothing to the host."""
     bc = batch.src.shape[0]
     g = mg.segsize
     dev = batch.src.device
@@ -162,19 +118,13 @@ def insert_batch(mg: MemGraphState, batch: EdgeBatch, *,
             ovf_prop=_scatter(mg.ovf_prop, opos, batch.prop, ok_w),
             ovf_n=(mg.ovf_n + batch.n).to(_I32),
             ne=(mg.ne + batch.n).to(_I32))
-        return new, (mg.ovf_n + batch.n) <= mg.ovf_cap
+        return (new, (mg.ovf_n + batch.n) <= mg.ovf_cap,
+                torch.zeros((), dtype=_I32, device=dev))
 
     with step_span(mode, "store_apply_claim"):
-        uniq, inv = torch.unique(srcv, sorted=True, return_inverse=True)
-        ukeys = torch.cat([uniq, torch.full((bc - uniq.shape[0],),
-                                            INVALID_VID, dtype=_I32,
-                                            device=dev)])
-        (htab_key, htab_row, n_rows, urow, is_new, hash_ok,
-         rounds) = _find_or_insert_rows(mg.htab_key, mg.htab_row, mg.n_rows,
-                                        ukeys)
-    if mode == "memgraph":
-        obs.REGISTRY.histogram("store_apply_claim_rounds",
-                               lo=1).observe(rounds)
+        (ukeys, inv, htab_key, htab_row, n_rows, urow, is_new, hash_ok,
+         rounds) = _claim.claim_rows(mg.htab_key, mg.htab_row, mg.n_rows,
+                                     srcv)
     with step_span(mode, "store_apply_place"):
         seg_owner = _scatter(mg.seg_owner, urow.long(), ukeys,
                              is_new & (urow < mg.nseg))
@@ -234,7 +184,7 @@ def insert_batch(mg: MemGraphState, batch: EdgeBatch, *,
             ne=(mg.ne + batch.n).to(_I32))
         ok = (hash_ok & (n_rows <= mg.nseg)
               & ((mg.ovf_n + n_ovf) <= mg.ovf_cap))
-    return new, ok
+    return new, ok, rounds
 
 
 def flush_arrays(mg: MemGraphState):

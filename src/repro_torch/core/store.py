@@ -659,11 +659,15 @@ class LSMGraph:
                               store=self.obs_label):
             batch = EdgeBatch(src=up(s), dst=up(d), ts=up(t), prop=up(p),
                               marker=up(m), n=scalar(len(s), dev))
-        new_mem, ok = mg_mod.insert_batch(mem, batch, mode=mode)
+        new_mem, ok, rounds = mg_mod.insert_batch_counted(mem, batch,
+                                                          mode=mode)
         with mg_mod.step_span(mode, "store_apply_wait",
                               store=self.obs_label):
-            ok = bool(ok)
-        return new_mem, ok
+            ok, rounds = torch.stack([ok.to(torch.int32), rounds]).tolist()
+        if mode == "memgraph":
+            obs.REGISTRY.histogram("store_apply_claim_rounds",
+                                   lo=1).observe(rounds)
+        return new_mem, bool(ok)
 
     def _ingest_replay(self, src, dst, ts, marker, prop) -> None:
         """Recovery-only ingest: re-insert WAL records with their ORIGINAL

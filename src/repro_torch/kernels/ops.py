@@ -14,6 +14,7 @@ from .merge import (lex_searchsorted, merge_laid_out, merge_pairs,
                     merge_streams, tournament_merge)
 from .presence import presence_matrix, presence_matrix_cuda
 from . import flash_attention as _flash
+from . import hash_claim as _hash_claim
 from . import lookup as _lookup
 from . import segment_reduce as _segred
 
@@ -27,7 +28,8 @@ KERNELS = {"presence_matrix": presence_matrix_cuda,
            "batched_searchsorted": _lookup.batched_searchsorted_cuda,
            "batched_searchsorted_runs":
                _lookup.batched_searchsorted_runs_cuda,
-           "flash_attention": _flash.flash_attention_cuda}
+           "flash_attention": _flash.flash_attention_cuda,
+           "hash_claim": _hash_claim.claim_rows_cuda}
 
 
 def gather_segsum(dst, seg_id, wt, x, *, n_out: int,

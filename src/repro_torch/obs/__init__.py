@@ -34,12 +34,14 @@ layer's instruments:
   ``store_level_runs`` gauges, background-thread error counts.  The
   apply's steps are child spans of ``store_apply``: ``store_apply_upload``
   (padding and the chunk's host-to-device copies),
-  ``store_apply_claim`` (``torch.unique`` and the hashmap's claim rounds;
-  no labels, the store is not at hand in ``memgraph.py``),
+  ``store_apply_claim`` (the dedup and the hashmap's claim rounds, one
+  kernel launch on the card, which reads nothing to the host; no labels,
+  the store is not at hand in ``memgraph.py``),
   ``store_apply_place`` (rank within row, the segment and overflow
-  scatters; no labels) and ``store_apply_wait`` (``bool(ok)``, where the
-  host waits for the insert's device work), with the histogram
-  ``store_apply_claim_rounds`` (rounds a chunk, no labels).  A
+  scatters; no labels) and ``store_apply_wait`` (the read of ``ok`` and
+  the claim rounds, where the host waits for the insert's device work),
+  with the histogram ``store_apply_claim_rounds`` (rounds a chunk, no
+  labels, observed after that read).  A
   compaction's ``csr.merge_runs`` is ``store_compaction_merge``; a run's
   sealing (``_wrap``: counts and vertex keys to the host, the presence
   filter) is ``store_run_seal``, inside a flush or a compaction.  The

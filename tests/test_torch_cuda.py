@@ -137,7 +137,8 @@ def test_cuda_segment_kernels_match_plain_versions():
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "batched_searchsorted_runs": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "hash_claim": 0}
 
 
 # Segment lengths laid against the single-run kernels' geometry (a warp

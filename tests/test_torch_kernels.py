@@ -28,7 +28,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import filters  # noqa: E402
 from repro_torch.core.store import _stack_presence  # noqa: E402
-from repro_torch.kernels import lookup, merge, ops, presence  # noqa: E402
+from repro_torch.kernels import hash_claim, lookup, merge, ops  # noqa: E402
+from repro_torch.kernels import presence  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import segment_reduce as segred  # noqa: E402
 
@@ -324,13 +325,17 @@ def test_launch_counters_ignore_plain_calls():
                                   keys)
     q = torch.zeros((1, 2, 128, 32))
     ops.attention(q, q, q, use_pallas=True)
+    slots = torch.full((16,), (1 << 31) - 1, dtype=torch.int32)
+    hash_claim.claim_rows(slots, torch.zeros_like(slots),
+                          torch.tensor(0, dtype=torch.int32), keys)
     assert ops.launch_counts() == {"presence_matrix": 0, "merge_perm": 0,
                                    "merge_pairs": 0,
                                    "gather_segsum": 0, "gather_segmin": 0,
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "batched_searchsorted_runs": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "hash_claim": 0}
 
 
 def test_launch_count_is_atomic_across_threads():
@@ -510,4 +515,5 @@ def test_cuda_kernels_match_plain_versions():
                                    "gather_segsum_runs": 0,
                                    "batched_searchsorted": 0,
                                    "batched_searchsorted_runs": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "hash_claim": 0}
