@@ -73,10 +73,12 @@ layer's instruments:
   and the ``compaction_sched_interval_seconds`` gauge tracking the
   backoff-widened tick.  Written only by the scheduler thread.
 * ``analytics_*`` — analytics/view.py: ``materialize_csr``'s record
-  collection (``analytics_view_collect``: the runs' record tensors and
-  the per-source loop, one span for the loop) and its merge
-  (``analytics_view_merge``: the tournament, or the concatenation and
-  its sort), both with ``store=``.
+  collection (``analytics_view_collect``: the MemGraph tiers sorted and
+  every source laid end to end, with no host read) and its merge
+  (``analytics_view_merge``: the one tournament over them, a
+  ``merge_pairs`` launch a round on the card), both with ``store=``;
+  ``analytics_view_sources_total`` (``store=``) counts the sources a
+  build merges (the MemGraph tiers and every sealed run with a vertex).
 * ``io_*``     — the ``IOCounters`` mirror (core/types.py): byte counters
   kept byte-compatible with the legacy dataclass API.
 * ``merge_*``  — the ``MERGE_STATS`` view (kernels/merge.py): kernel-vs-

@@ -29,7 +29,13 @@ from repro.data.graphgen import powerlaw_edges  # noqa: E402
 from repro_torch import analytics as pan  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.analytics import view as pview  # noqa: E402
+from repro import storage as jstorage  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
+from repro_torch.core.types import BYTES_PER_EDGE, BYTES_PER_PROP  # noqa: E402
+from repro_torch.kernels.merge import MERGE_STATS, merge_plan  # noqa: E402
+from repro_torch.storage import open_store  # noqa: E402
+from repro_torch.storage.errors import DegradedRange  # noqa: E402
 
 V = 300
 PR_TOL = dict(rtol=1e-5, atol=1e-7)
@@ -150,9 +156,11 @@ def test_multilevel_views_and_pagerank_match_jax(graphs):
 @pytest.mark.parametrize("k,branch", [(3, "kernel_merge"),
                                       (9, "host_lexsort")])
 def test_collect_sorted_branch_counts(k, branch):
-    """k L0 runs: 2..8 sources merge in the tournament, more are sorted as
-    one concatenation; both packages count the branch under its key and
-    give byte-equal CSRs."""
+    """k L0 runs: the reference merges 2..8 sources in its tournament and
+    sorts more as one concatenation, counting the branch under its key;
+    the port lays every source end to end and merges them in one
+    tournament at any k, counting its pairwise merges under
+    ``kernel_merge`` and no host sort.  Both give byte-equal CSRs."""
     rng = np.random.default_rng(7)
     stores = _pair(l0_run_limit=k + 64)
     for _ in range(k):
@@ -163,21 +171,229 @@ def test_collect_sorted_branch_counts(k, branch):
         for g in stores:
             g.insert_edges(s[keep], d[keep])
             g.flush_memgraph()
-    pstats, jstats = pview.MERGE_STATS, jview.MERGE_STATS
+    pstats, jstats = MERGE_STATS, jview.MERGE_STATS
     before = (pstats.snapshot_stats(), dict(jstats))
     with stores[0].snapshot() as js, stores[1].snapshot() as ps:
+        caps = pview._laid_out_sources(ps)[1]
         jv, pv = jan.materialize_csr(js, 400), pan.materialize_csr(ps, 400)
     after = (pstats.snapshot_stats(), dict(jstats))
     dp, dj = ({key: a[key] - b[key] for key in ("kernel_merge",
                                                 "host_lexsort")}
               for a, b in zip(after, before))
-    assert dj[branch] == 1 and dp["host_lexsort"] == dj["host_lexsort"]
-    if branch == "kernel_merge":
-        # The port's tournament also counts each of its k - 1 pairwise
-        # merges under this key.
-        assert dp["kernel_merge"] == 1 + (k - 1)
-    else:
-        assert dp["kernel_merge"] == dj["kernel_merge"] == 0
+    assert dj[branch] == 1 and dj["kernel_merge"] + dj["host_lexsort"] == 1
+    # The active MemGraph tier (empty here) and the k runs.
+    assert len(caps) == 1 + k
+    assert dp == {"kernel_merge": merge_plan(caps).merges,
+                  "host_lexsort": 0}
     for f in ("voff", "dst", "prop"):
         np.testing.assert_array_equal(_np(getattr(pv, f)),
                                       np.asarray(getattr(jv, f)), f)
+
+
+# --------------------------------------- materialize_csr's sources, by case
+def _edges(seed, n, v=400):
+    """n distinct (src, dst) pairs below v in random order, with props."""
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, v * v, n))
+    rng.shuffle(key)
+    return key // v, key % v, rng.random(len(key)).astype(np.float32)
+
+
+def _runs(g, parts, seed):
+    """Each part of one stream of distinct pairs inserted and flushed into
+    an L0 run; every fourth pair of each part then deleted in the next."""
+    s, d, p = _edges(seed, 300 * parts)
+    for i in range(parts):
+        sl = slice(i * len(s) // parts, (i + 1) * len(s) // parts)
+        g.insert_edges(s[sl], d[sl], prop=p[sl])
+        if i:
+            prev = slice((i - 1) * len(s) // parts, i * len(s) // parts)
+            g.delete_edges(s[prev][::4], d[prev][::4])
+        g.flush_memgraph()
+    return s, d, p
+
+
+def _snapshot_of(g, state):
+    """A snapshot object of ``state``, of ``g``'s package (not pinned)."""
+    with g.snapshot() as snap:
+        cls = type(snap)
+    return cls(g, state)
+
+
+def _case_memgraph_only(g, _tmp):
+    s, d, p = _edges(11, 400)
+    g.insert_edges(s, d, prop=p)
+    g.delete_edges(s[::5], d[::5])
+    assert not any(g.levels)
+    return g.snapshot()
+
+
+def _case_one_run(g, _tmp):
+    s, d, p = _edges(12, 500)
+    g.insert_edges(s, d, prop=p)
+    g.delete_edges(s[::7], d[::7])
+    g.flush_memgraph()
+    assert len(g.levels[0]) == 1 and int(g.mem.ne) == 0
+    return g.snapshot()
+
+
+def _case_deep_sealed_tier(g, _tmp):
+    """L1 runs from a compaction, L0 runs after it, and the state between
+    a flush's rotate and its commit: the full MemGraph sealed (mem_full)
+    while a fresh one holds newer writes."""
+    _runs(g, 4, seed=13)
+    g.compact_l0()
+    _runs(g, 5, seed=14)
+    s, d, p = _edges(15, 600)
+    g.insert_edges(s[:300], d[:300], prop=p[:300])
+    g.delete_edges(s[:300:6], d[:300:6])
+    before = g._state
+    g.flush_memgraph()
+    g.insert_edges(s[300:], d[300:], prop=p[300:])
+    g.delete_edges(s[:300:9], d[:300:9])
+    after = g._state
+    assert len(before.levels[0]) + len(before.levels[1]) >= 9
+    st = dataclasses.replace(
+        after, mem_full=before.mem, mem_full_id=before.mem_id,
+        levels=before.levels, index=before.index,
+        runs_by_fid=before.runs_by_fid, spine=type(after.spine)())
+    snap = _snapshot_of(g, st)
+    assert len(snap.mem_states) == 2
+    return snap
+
+
+def _case_tombstones_across_levels(g, _tmp):
+    """Keys inserted in L1, deleted in L0, inserted again in the MemGraph;
+    and the other way round."""
+    s, d, p = _edges(16, 600)
+    a, b = slice(0, 300), slice(300, 600)
+    g.insert_edges(s[a], d[a], prop=p[a])
+    g.flush_memgraph()
+    g.compact_l0()
+    g.delete_edges(s[a][::2], d[a][::2])
+    g.insert_edges(s[b], d[b], prop=p[b])
+    g.flush_memgraph()
+    g.insert_edges(s[a][::4], d[a][::4], prop=p[a][::4] + 1)
+    g.delete_edges(s[b][::3], d[b][::3])
+    assert g.levels[0] and g.levels[1]
+    return g.snapshot()
+
+
+def _case_records_past_tau(g, _tmp):
+    """A state that holds records written after its τ: runs flushed and
+    MemGraph records past it are filtered out."""
+    _runs(g, 2, seed=17)
+    tau = g._state.tau
+    _runs(g, 2, seed=18)
+    s, d, p = _edges(19, 200)
+    g.insert_edges(s, d, prop=p)
+    return _snapshot_of(g, dataclasses.replace(g._state, tau=tau))
+
+
+def _case_degraded_run(g, _tmp):
+    _runs(g, 3, seed=20)
+    rf = g.levels[0][1]
+    bad = (DegradedRange(rf.min_vid, rf.max_vid, rf.fid, "test"),)
+    g.degraded_ranges = lambda: bad
+    snap = g.snapshot()
+    assert rf.fid not in {r.fid for r in snap.l0_runs}
+    return snap
+
+
+def _case_durable_cold(g, _tmp):
+    _runs(g, 3, seed=21)
+    g.compact_l0()
+    _runs(g, 2, seed=22)
+    assert g.durability.evict_all_segments() == len(g.runs_by_fid) >= 3
+    snap = g.snapshot()
+    assert all(rf.arrays is None for rf in snap.runs_by_fid.values())
+    return snap
+
+
+CASES = {"memgraph_only": _case_memgraph_only,
+         "one_run": _case_one_run,
+         "deep_sealed_tier": _case_deep_sealed_tier,
+         "tombstones_across_levels": _case_tombstones_across_levels,
+         "records_past_tau": _case_records_past_tau,
+         "degraded_run": _case_degraded_run,
+         "durable_cold": _case_durable_cold}
+
+
+def _case_pair(case, tmp_path):
+    jcfg = small_store_cfg(l0_run_limit=64, seg_target_edges=256)
+    pcfg = StoreConfig(**dataclasses.asdict(jcfg))
+    if case == "durable_cold":
+        stores = (jstorage.open_store(str(tmp_path / "j"), jcfg,
+                                      wal_sync="off"),
+                  open_store(str(tmp_path / "p"), pcfg, device="cpu",
+                             wal_sync="off"))
+    else:
+        stores = (JaxGraph(jcfg), LSMGraph(pcfg, device="cpu"))
+    return stores, [CASES[case](g, tmp_path) for g in stores]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_materialize_csr_matches_reference_by_case(case, tmp_path):
+    """The port's view of each kind of snapshot byte-equal to the
+    reference's: offsets, neighbours, properties and the bytes charged;
+    every source merged once."""
+    stores, snaps = _case_pair(case, tmp_path)
+    ps = snaps[1]
+    want_sources = len(ps.mem_states) + sum(
+        rf.nv > 0 for rf in ps.runs_by_fid.values())
+    read0 = [g.io.analytics_read for g in stores]
+    sources = obs.REGISTRY.counter("analytics_view_sources_total",
+                                   store=stores[1].obs_label)
+    n0 = sources.value
+    jv, pv = jan.materialize_csr(snaps[0], 400), pan.materialize_csr(ps, 400)
+    assert sources.value - n0 == want_sources
+    assert pv.n_edges == jv.n_edges > 0
+    for f in ("voff", "dst", "prop"):
+        want, got = np.asarray(getattr(jv, f)), _np(getattr(pv, f))
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    assert [g.io.analytics_read - r for g, r in zip(stores, read0)] == \
+        [jv.n_edges * (BYTES_PER_EDGE + BYTES_PER_PROP)] * 2
+    for g in stores:
+        g.close()
+
+
+def test_view_sources_counter_counts_each_source():
+    """``analytics_view_sources_total`` advances by the sources a build
+    merges: the MemGraph tiers and every sealed run with a vertex, one
+    pairwise merge fewer than sources."""
+    g = LSMGraph(StoreConfig(**dataclasses.asdict(
+        small_store_cfg(l0_run_limit=64, seg_target_edges=256))),
+        device="cpu")
+    snap = _case_deep_sealed_tier(g, None)
+    runs = [rf for lvl in [snap.l0_runs] + snap.level_runs for rf in lvl]
+    n_sources = 2 + len(runs)
+    assert len(runs) >= 9 and all(rf.nv > 0 for rf in runs)
+    sources = obs.REGISTRY.counter("analytics_view_sources_total",
+                                   store=g.obs_label)
+    merges = obs.REGISTRY.counter("merge_kernel_merge_total")
+    n0, m0 = sources.value, merges.value
+    for i in range(2):
+        pan.materialize_csr(snap, 400)
+        assert sources.value - n0 == (i + 1) * n_sources
+        assert merges.value - m0 == (i + 1) * (n_sources - 1)
+
+
+def test_view_layout_equals_the_read_spine_layout():
+    """The view lays a deep store's runs out (``view._lay_out``) as the
+    read spine does (``store._spine_run_streams``), run ids aside: every
+    column byte-equal, pads included, after two MemGraph tiers."""
+    from repro_torch.core import memgraph as pmg
+    from repro_torch.core import store as port_store
+    g = LSMGraph(StoreConfig(**dataclasses.asdict(
+        small_store_cfg(l0_run_limit=64, seg_target_edges=256))),
+        device="cpu")
+    snap = _case_deep_sealed_tier(g, None)
+    runs = [rf for lvl in [snap.l0_runs] + snap.level_runs for rf in lvl]
+    tiers = [pmg.backbone_stream(mg) for mg in snap.mem_states]
+    got, caps = pview._lay_out(tiers, runs)
+    lead = tuple(torch.cat(c) for c in zip(*tiers))
+    want, want_caps = port_store._spine_run_streams(
+        [(rf, 0) for rf in runs], lead=lead)
+    assert caps[2:] == want_caps[1:] and sum(caps[:2]) == want_caps[0]
+    for i, (a, b) in enumerate(zip(got, want[:3] + want[4:])):
+        assert a.dtype == b.dtype and torch.equal(a, b), i

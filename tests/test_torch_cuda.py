@@ -21,7 +21,9 @@ version where every partial sum is an exact float32 integer, and match
 within rtol 1e-5 / atol 1e-4 on real-valued x.  The merge-path
 permutation and the batched tournament round (keys and payload moved,
 never computed) must equal their plain versions exactly, and a store's
-spine built on the card must equal the CPU store's.  A durable store on
+spine built on the card must equal the CPU store's; the analytics view's
+collection and merge must read nothing to the host, launch ``merge_pairs``
+once a round and give the CPU store's CSR.  A durable store on
 the card must reload evicted runs from their segment files byte-equal to
 the tensors it evicted, read the same after a reopen, order a prefetched
 run's upload before a reader on another thread (20 times), and serve
@@ -819,6 +821,51 @@ def test_cuda_store_spine_matches_cpu_store():
     assert card.total == cpu.total
     for i, (a, b) in enumerate(zip(card.cols, cpu.cols)):
         assert torch.equal(a.cpu(), b), i
+
+
+@pytest.mark.cuda
+def test_cuda_view_collect_and_merge_never_wait():
+    """``materialize_csr``'s collection and merge of a multi-run snapshot
+    on the card read nothing to the host (any synchronizing call raises
+    under ``set_sync_debug_mode("error")``), launch ``merge_pairs`` once a
+    round, and give the CSR of the same stream through a CPU store."""
+    from repro_torch.analytics import view
+    dev = _card()
+    cfg = dict(vmax=1 << 12, mem_edges=1 << 10, seg_size=4,
+               n_segments=1 << 10, hash_slots=1 << 12, ovf_cap=1 << 12,
+               batch_cap=256, l0_run_limit=2, seg_target_edges=256,
+               level_factor=2, n_levels=5)
+    rng = np.random.default_rng(16)
+    key = np.unique(rng.integers(0, 1 << 24, 12000))
+    rng.shuffle(key)
+    src, dst = key >> 12, key & 4095
+    prop = rng.random(len(src)).astype(np.float32)
+    views = []
+    for d in (dev, "cpu"):
+        g = LSMGraph(StoreConfig(**cfg), device=d)
+        for lo in range(0, len(src), 256):
+            g.insert_edges(src[lo:lo + 256], dst[lo:lo + 256],
+                           prop=prop[lo:lo + 256])
+            g.delete_edges(src[lo:lo + 256:9], dst[lo:lo + 256:9])
+        with g.snapshot() as snap:
+            if g.device.type == "cuda":
+                caps = view._laid_out_sources(snap)[1]
+                assert len(caps) >= 20
+                view._collect_sorted(snap)   # builds and loads the kernel
+                torch.cuda.synchronize()
+                before = merge.merge_pairs_cuda.launches
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    view._collect_sorted(snap)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                assert merge.merge_pairs_cuda.launches - before == len(
+                    merge.merge_plan(caps).rounds)
+            views.append(analytics.materialize_csr(snap, cfg["vmax"]))
+    card, cpu = views
+    assert card.n_edges == cpu.n_edges > 0
+    for f in ("voff", "dst", "prop"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
 
 
 # ------------------------------------------------ durable and concurrent

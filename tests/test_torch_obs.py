@@ -40,8 +40,8 @@ from repro_torch.obs.trace_export import (export_chrome_trace,  # noqa: E402
 from repro_torch.storage import open_store  # noqa: E402
 
 #: Series the port adds beyond the reference's: the spine build's span,
-#: and the step spans of the apply, the compaction, the run seal, the
-#: resolve and the view build.
+#: the step spans of the apply, the compaction, the run seal, the
+#: resolve and the view build, and the view build's source count.
 PORT_ONLY = {("read", "spine_build_seconds"),
              ("store", "apply_upload_seconds"),
              ("store", "apply_wait_seconds"),
@@ -51,7 +51,8 @@ PORT_ONLY = {("read", "spine_build_seconds"),
              ("read", "resolve_mem_seconds"),
              ("read", "resolve_host_seconds"),
              ("analytics", "view_collect_seconds"),
-             ("analytics", "view_merge_seconds")}
+             ("analytics", "view_merge_seconds"),
+             ("analytics", "view_sources_total")}
 
 
 @pytest.fixture(autouse=True)
