@@ -47,14 +47,12 @@ line):
    ``torch.profiler`` (all its kernels, and the reduction alone) and on two
    data probes (dst all 0, dst = seg_id).
 5. Paper Fig 16 on that store: ``neighbors_batch`` of phase 3's queries
-   with the multi-level index off (the read spine probes every run), then
-   the legacy concat-then-lexsort read (``LSMG_READ_TOURNAMENT_K=0``) with
-   the index on and off, each equal to the oracle; then the per-run
-   no-index probe on a fresh snapshot: ``run_lookup_batch(use_pallas=True)``
-   on every run, byte-equal to its plain version, naming the slice the
-   multi-level index names on every L1+ run and never finding a vertex its
-   filter rules out on L0.  ``batched_searchsorted`` must launch once a run.
-   Then the same probe over every run at once (``csr.runs_lookup_batch``),
+   with the multi-level index off (the read spine probes every run), equal
+   to the oracle; then the per-run no-index probe on a fresh snapshot:
+   ``run_lookup_batch(use_pallas=True)`` on every run, byte-equal to its
+   plain version, naming the slice the multi-level index names on every
+   L1+ run and never finding a vertex its filter rules out on L0.
+   ``batched_searchsorted`` must launch once a run. Then the same probe over every run at once (``csr.runs_lookup_batch``),
    byte-equal to the per-run pass and to its plain version, with exactly
    one launch of ``batched_searchsorted_runs``; both walls are printed
    beside the index's lookup, with the one-launch pass's peak device
@@ -691,12 +689,10 @@ def check_merge_pairs(store, log=print):
     kernel overwrites.  Bound: every record's keys and payload read once
     and written once, the least a k-way merge moves."""
     import torch
-    from repro_torch.core.store import _spine_run_streams
+    from repro_torch.core.store import lay_out_runs
     from repro_torch.kernels import merge
-    runs = [(rf, -1) for rf in store.levels[0] if rf.nv > 0] + [
-        (rf, col) for col, lvl in enumerate(store.levels[1:])
-        for rf in lvl if rf.nv > 0]
-    cols, caps = _spine_run_streams(runs)
+    cols, caps = lay_out_runs([rf for lvl in store.levels for rf in lvl
+                               if rf.nv > 0])
     plan = merge.merge_plan(caps)
 
     def fresh():
@@ -1208,13 +1204,12 @@ def _timed_read(store, queries, *, index: bool):
 
 def fig16_path(dev, store, queries, oracle, log=print):
     """Paper Fig 16 on the phase-3 store: the read with the multi-level
-    index off, the legacy concat-then-lexsort read (``LSMG_READ_
-    TOURNAMENT_K=0``) with the index on and off, each held against the
-    last-writer-wins oracle; then the per-run no-index probe, one
-    ``run_lookup_batch(use_pallas=True)`` a run, held against its plain
-    version, the multi-level index (L1+) and the presence filters (L0)."""
+    index off, held against the last-writer-wins oracle; then the per-run
+    no-index probe, one ``run_lookup_batch(use_pallas=True)`` a run, held
+    against its plain version, the multi-level index (L1+) and the
+    presence filters (L0)."""
     import torch
-    from repro_torch.core import csr, index as mlindex, store as store_mod
+    from repro_torch.core import csr, index as mlindex
     cuda = dev.type == "cuda"
 
     def sync():
@@ -1229,21 +1224,6 @@ def fig16_path(dev, store, queries, oracle, log=print):
     log(f"fig16 spine read, index off: {len(queries)} queries equal to the "
         f"oracle in {wall * 1e3:.1f} ms; per query {ppq:.4f} runs probed, "
         f"{cpq:.1f} (run, query) pairs filter-checked")
-    saved = store_mod._READ_TOURNAMENT_MAX_K
-    store_mod._READ_TOURNAMENT_MAX_K = 0
-    try:
-        for index in (True, False):
-            out, wall, ppq, cpq = _timed_read(store, queries, index=index)
-            what = f"legacy read, index {'on' if index else 'off'}"
-            check_oracle(queries, out, oracle, what)
-            res[f"legacy_index_{'on' if index else 'off'}"] = dict(
-                wall_ms=wall * 1e3, probes_per_query=ppq,
-                filter_checked_per_query=cpq)
-            log(f"fig16 {what}: {len(queries)} queries equal to the oracle in "
-                f"{wall * 1e3:.1f} ms; per query {ppq:.4f} runs probed, "
-                f"{cpq:.1f} (run, query) pairs filter-checked")
-    finally:
-        store_mod._READ_TOURNAMENT_MAX_K = saved
 
     snap = store.snapshot()
     try:

@@ -4,8 +4,9 @@
 Two read strategies:
 
   * ``materialize_csr`` — the exact merged live CSR at τ.  One merge of
-    the snapshot's sources; every iteration of every algorithm then runs
-    at CSR speed.
+    the snapshot's sources, laid end to end by the read spine's own run
+    layout (``store.lay_out_runs``); every iteration of every algorithm
+    then runs at CSR speed.
   * ``multilevel_views`` — merge-free per-run views with ± tombstone
     weights, consumed by ``multilevel.py``.
 
@@ -16,15 +17,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import obs
 from ..core import memgraph as mg_mod
-from ..core.store import Snapshot, prefetch_pool
+from ..core.store import Snapshot, lay_out_runs
 from ..core.types import BYTES_PER_EDGE, BYTES_PER_PROP, INVALID_VID
 from ..kernels import ops as kops
-from ..kernels.merge import to_device
 
 _I32 = torch.int32
 
@@ -50,69 +49,21 @@ class CSRView(NamedTuple):
         return j.clamp(max=self.n_vertices - 1)
 
 
-def _lay_out(tiers, runs):
-    """The MemGraph tiers' streams, then every run of ``runs`` at full
-    capacity, pads included, end to end in one buffer a column (src, dst,
-    ts, marker, prop), and each source's capacity.
-
-    The runs go as the read spine lays them (``store._spine_run_streams``)
-    without its run ids, and with no tensor op a run, since a host loop
-    over a deep store's ~2,000 runs costs more than their merge.  Each
-    run's edge count is the host's (``RunFile.ne``), and the runs' whole
-    ``voff`` arrays are laid end to end, each one's leading 0 included:
-    shifted to the run's first slot they stay sorted, so one
-    ``searchsorted`` of the global slot finds each slot's vertex, one
-    entry further on for each run up to and including its own.  Cold runs
-    are all put on the prefetch pool first, and the host never waits on
-    the card."""
-    # Column 3 of a tier's stream is the read spine's run id.
-    parts = [[t[i] for t in tiers] for i in (0, 1, 2, 4, 5)]
-    caps = [int(t[0].shape[0]) for t in tiers]
-    if runs:
-        pool = None
-        for rf in runs:
-            if rf.arrays is None:
-                pool = pool or prefetch_pool()
-                rf.prefetch(pool)
-        arrays = [rf.ensure_loaded() for rf in runs]
-        dev = parts[0][0].device
-        # numel() is the cheapest of a tensor's size reads on the host.
-        ecap = np.array([a.dst.numel() for a in arrays], np.int64)
-        vcap = np.array([a.vkeys.numel() for a in arrays], np.int64)
-        eoff = sum(caps) + np.cumsum(ecap) - ecap
-        n_e, n_v, r = int(ecap.sum()), int(vcap.sum()), len(runs)
-        tab = to_device(np.concatenate([
-            ecap, vcap + 1, eoff, eoff + [rf.ne for rf in runs]]), dev)
-        ecap_t, vlen_t, eoff_t, end_t = tab.split(r)
-        run = torch.repeat_interleave(torch.arange(r, device=dev), ecap_t,
-                                      output_size=n_e)
-        slot = torch.arange(int(eoff[0]), int(eoff[0]) + n_e, device=dev)
-        ends = torch.cat([a.voff for a in arrays]).long() + \
-            torch.repeat_interleave(eoff_t, vlen_t, output_size=n_v + r)
-        # A pad slot may land on the next run's first vertex, or past the
-        # last run's: its vertex is masked below.
-        j = (torch.searchsorted(ends, slot, right=True) - run - 1).clamp(
-            max=n_v - 1)
-        parts[0].append(torch.where(
-            slot < end_t[run], torch.cat([a.vkeys for a in arrays])[j],
-            INVALID_VID).to(_I32))
-        for part, f in zip(parts[1:], ("dst", "ts", "marker", "prop")):
-            part.extend(getattr(a, f) for a in arrays)
-        caps += ecap.tolist()
-    return tuple(torch.cat(p) for p in parts), caps
-
-
 def _laid_out_sources(snapshot: Snapshot):
-    """Every source of the snapshot laid end to end (``_lay_out``): the
-    MemGraph tiers, each sorted once at its full capacity
-    (``memgraph.backbone_stream``), then every sealed run with a vertex
-    (degraded runs are already left out of the snapshot's runs).  Every
-    source is (src, dst, ts)-ordered and its pads carry src ==
-    INVALID_VID."""
-    return _lay_out(
-        [mg_mod.backbone_stream(mg) for mg in snapshot.mem_states],
+    """Every source of the snapshot laid end to end as the read spine lays
+    its runs (``store.lay_out_runs``), in one buffer a column (src, dst,
+    ts, marker, prop), and each source's capacity: the MemGraph tiers,
+    each sorted once at its full capacity (``memgraph.backbone_stream``),
+    lead every sealed run with a vertex (degraded runs are already left
+    out of the snapshot's runs).  Every source is (src, dst, ts)-ordered
+    and its pads carry src == INVALID_VID.  The run-id column is dropped:
+    the view needs no record's run, and the merge moves 17 bytes a record
+    without it, not 21."""
+    cols, caps = lay_out_runs(
         [rf for rf in snapshot.l0_runs + [
-            r for lvl in snapshot.level_runs for r in lvl] if rf.nv > 0])
+            r for lvl in snapshot.level_runs for r in lvl] if rf.nv > 0],
+        leads=[mg_mod.backbone_stream(mg) for mg in snapshot.mem_states])
+    return cols[:3] + cols[4:], caps
 
 
 def _collect_sorted(snapshot: Snapshot):

@@ -126,16 +126,6 @@ def runs_lookup_batch(runs: Sequence[CSRRunArrays], vs: torch.Tensor, *,
     return found, start, end
 
 
-def map_run_to_queries(run: CSRRunArrays, vs: torch.Tensor) -> torch.Tensor:
-    """Per EDGE record, the position of its source vertex in the sorted
-    query vector vs — or B for records of non-queried vertices / pads."""
-    b = vs.shape[0]
-    src = expand_src(run)
-    j = torch.searchsorted(vs, src).clamp(max=b - 1)
-    hit = (vs[j] == src) & (src != INVALID_VID)
-    return torch.where(hit, j, b).to(_I32)
-
-
 def run_gather(run: CSRRunArrays, start, end, *, cap: int):
     """Gather up to `cap` edge records from [start, end)."""
     dev = run.dst.device

@@ -59,12 +59,6 @@ def _read_filters_enabled() -> bool:
         "0", "false", "False")
 
 
-# 0 disables the tournament-merged read spine entirely: every resolve then
-# takes the legacy concat-then-lexsort path (an escape hatch, read once at
-# import as in the reference).
-_READ_TOURNAMENT_MAX_K = int(os.environ.get("LSMG_READ_TOURNAMENT_K", "8"))
-
-
 # Shared background pool for cold-segment loads: prefetch submissions from
 # the read path overlap disk reads and uploads with the foreground's device
 # dispatch.  Process-wide and created lazily, so pure in-memory stores never
@@ -153,56 +147,62 @@ def _fit_spine_cols(cols, total: int):
     return tuple(cols)
 
 
-def _spine_run_streams(runs, rid_base: int = 0, lead=None):
-    """Every run as a backbone stream (src, dst, ts, rid, marker, prop),
-    the streams laid end to end at full capacity, pads included, one
-    buffer a column; ``lead``, an already merged stream, goes first.
-    Returns (columns, capacities) for ``merge_laid_out``.
+def lay_out_runs(runs, rid_base: int = 0, leads=()):
+    """Every run of ``runs`` (``RunFile``s) as a merge stream (src, dst,
+    ts, rid, marker, prop) at full capacity, pads included, laid end to end
+    in one buffer a column after the ``leads`` (streams already in (src,
+    dst, ts) order, such as a retained spine or a MemGraph tier's
+    ``backbone_stream``).  Run ``i``'s records carry rid ``rid_base + i``.
+    Returns (columns, each source's capacity) for ``merge_laid_out``: the
+    one layout of sealed runs for a merge, shared by the read spine's build
+    and splice and the analytics view.
 
     Each run is (src, dst, ts)-ordered by construction and its pad slots
-    carry src == INVALID_VID, so no stream is sorted.  ``src`` is
-    ``csr.expand_src`` of every run at once: one ``searchsorted`` of the
-    global slot index over every run's ``voff[1:]`` shifted to the run's
-    first slot (the runs' ranges do not overlap, so each slot finds its
-    own run's vertex), and ``rid`` one ``repeat_interleave`` with its
-    output size given, so the host never waits on the card.  Cold
+    carry src == INVALID_VID, so no stream is sorted.  No tensor op is made
+    a run, since a host loop over a deep store's ~2,000 runs costs more
+    than their merge: each run's edge count is the host's (``RunFile.ne``),
+    and the runs' whole ``voff`` arrays are laid end to end, each one's
+    leading 0 included.  Shifted to the run's first slot they stay sorted,
+    so one ``searchsorted`` of the global slot finds each slot's vertex,
+    one entry further on for each run up to and including its own.  Cold
     (evicted) runs are all put on the prefetch pool first, so their loads
-    overlap each other and the foreground's."""
-    pool = None
-    for rf, _col in runs:
-        if rf.arrays is None:
-            pool = pool or prefetch_pool()
-            rf.prefetch(pool)
-    arrays = [rf.ensure_loaded() for rf, _col in runs]
-    dev = arrays[0].dst.device
-    ecap = np.array([a.ecap for a in arrays], np.int64)
-    vcap = np.array([a.vcap for a in arrays], np.int64)
-    lead_n = 0 if lead is None else int(lead[0].shape[0])
-    eoff = lead_n + np.cumsum(ecap) - ecap
-    voff0 = np.cumsum(vcap) - vcap
-    n_e, n_v = int(ecap.sum()), int(vcap.sum())
-    tab = to_device(np.concatenate([ecap, vcap, eoff, voff0]), dev)
-    ecap_t, vcap_t, eoff_t, voff0_t = tab.split(len(arrays))
-    run = torch.repeat_interleave(
-        torch.arange(len(arrays), device=dev), ecap_t, output_size=n_e)
-    slot = torch.arange(lead_n, lead_n + n_e, device=dev)
-    ends = torch.cat([a.voff[1:] for a in arrays]).long() + \
-        torch.repeat_interleave(eoff_t, vcap_t, output_size=n_v)
-    j = torch.minimum(torch.searchsorted(ends, slot, right=True),
-                      (voff0_t + vcap_t - 1)[run])
-    ne = torch.stack([a.ne for a in arrays]).long()
-    src = torch.where(slot - eoff_t[run] < ne[run],
-                      torch.cat([a.vkeys for a in arrays])[j],
-                      INVALID_VID).to(_I32)
-    cols = [src, torch.cat([a.dst for a in arrays]),
-            torch.cat([a.ts for a in arrays]), (run + rid_base).to(_I32),
-            torch.cat([a.marker for a in arrays]),
-            torch.cat([a.prop for a in arrays])]
-    caps = ecap.tolist()
-    if lead is not None:
-        cols = [torch.cat([x, c]) for x, c in zip(lead, cols)]
-        caps = [lead_n] + caps
-    return tuple(cols), caps
+    overlap each other and the foreground's, and the host never waits on
+    the card."""
+    parts = [[lead[i] for lead in leads] for i in range(6)]
+    caps = [int(lead[0].shape[0]) for lead in leads]
+    if runs:
+        pool = None
+        for rf in runs:
+            if rf.arrays is None:
+                pool = pool or prefetch_pool()
+                rf.prefetch(pool)
+        arrays = [rf.ensure_loaded() for rf in runs]
+        dev = arrays[0].dst.device
+        # numel() is the cheapest of a tensor's size reads on the host.
+        ecap = np.array([a.dst.numel() for a in arrays], np.int64)
+        vcap = np.array([a.vkeys.numel() for a in arrays], np.int64)
+        eoff = sum(caps) + np.cumsum(ecap) - ecap
+        n_e, n_v, r = int(ecap.sum()), int(vcap.sum()), len(runs)
+        tab = to_device(np.concatenate([
+            ecap, vcap + 1, eoff, eoff + [rf.ne for rf in runs]]), dev)
+        ecap_t, vlen_t, eoff_t, end_t = tab.split(r)
+        run = torch.repeat_interleave(torch.arange(r, device=dev), ecap_t,
+                                      output_size=n_e)
+        slot = torch.arange(int(eoff[0]), int(eoff[0]) + n_e, device=dev)
+        ends = torch.cat([a.voff for a in arrays]).long() + \
+            torch.repeat_interleave(eoff_t, vlen_t, output_size=n_v + r)
+        # A pad slot may land on the next run's first vertex, or past the
+        # last run's: its vertex is masked below.
+        j = (torch.searchsorted(ends, slot, right=True) - run - 1).clamp(
+            max=n_v - 1)
+        parts[0].append(torch.where(
+            slot < end_t[run], torch.cat([a.vkeys for a in arrays])[j],
+            INVALID_VID).to(_I32))
+        parts[3].append((run + rid_base).to(_I32))
+        for i, f in ((1, "dst"), (2, "ts"), (4, "marker"), (5, "prop")):
+            parts[i].extend(getattr(a, f) for a in arrays)
+        caps += ecap.tolist()
+    return tuple(torch.cat(p) for p in parts), caps
 
 
 def _empty_cols(device):
@@ -217,7 +217,7 @@ def _build_run_spine(runs, device) -> _RunSpine:
     if not runs:
         return _RunSpine(frozenset(), (), _empty_cols(device), 0)
     total = sum(rf.ne for rf, _col in runs)
-    cols = kops.merge_laid_out(*_spine_run_streams(runs))
+    cols = kops.merge_laid_out(*lay_out_runs([rf for rf, _col in runs]))
     _MERGE_STATS.bump("spine_build")
     return _RunSpine(frozenset(rf.fid for rf, _col in runs), runs,
                      _fit_spine_cols(cols, total), total)
@@ -260,8 +260,9 @@ def _splice_run_spine(base: _RunSpine, runs) -> _RunSpine:
     retained = _filter_remap_spine(
         *base.cols, torch.from_numpy(rid_map).to(dev), out_cap=out_cap)
     if added:
-        cols = kops.merge_laid_out(*_spine_run_streams(
-            added, rid_base=len(kept), lead=retained))
+        cols = kops.merge_laid_out(*lay_out_runs(
+            [rf for rf, _col in added], rid_base=len(kept),
+            leads=[retained]))
     else:
         cols = retained
     total = retained_total + sum(rf.ne for rf, _col in added)
@@ -1223,26 +1224,18 @@ class Snapshot:
                 + ", ".join(f"[{r.lo}, {r.hi}] (fid {r.fid})" for r in hit),
                 ranges=hit)
 
-    def _prefetch_range(self, lo: int, hi: int,
-                        queries: Optional[np.ndarray] = None) -> int:
+    def _prefetch_range(self, lo: int, hi: int) -> int:
         """Kick background loads for every cold visible run whose vertex
         range overlaps [lo, hi] — host metadata only, no device sync, so
-        disk I/O overlaps whatever the caller dispatches next.  When the
-        exact query vector is known, each run's presence filter gates the
-        schedule: a cold run that rejects EVERY query is provably untouched
-        by the resolve, so its disk load is skipped.  Returns the number of
-        loads scheduled."""
+        disk I/O overlaps whatever the caller dispatches next.  Returns the
+        number of loads scheduled."""
         if hi < lo:
             return 0
-        use_filters = queries is not None and _read_filters_enabled()
         n = 0
         pool = None
         for rf in self.runs_by_fid.values():
             if (rf.arrays is None and rf.nv > 0
                     and rf.max_vid >= lo and rf.min_vid <= hi):
-                if (use_filters and rf.presence is not None
-                        and not rf.presence.might_contain(queries).any()):
-                    continue
                 if pool is None:
                     pool = prefetch_pool()
                 n += rf.prefetch(pool)
@@ -1253,20 +1246,11 @@ class Snapshot:
             return self._resolve_batch(u)
         # Uniform chunk padding: every chunk resolves at one query width.
         chunk_pad = csr.quantize_cap(self._BATCH_CHUNK, minimum=64)
-        chunks = [u[lo:lo + self._BATCH_CHUNK]
-                  for lo in range(0, len(u), self._BATCH_CHUNK)]
         offs_l, dst_l, prop_l = [np.zeros(1, np.int64)], [], []
         base = 0
-        for i, cu in enumerate(chunks):
-            if i + 1 < len(chunks) and not self.spine_ready():
-                # Double-buffer (legacy / pre-spine): chunk i+1's cold
-                # segments stream in while chunk i resolves.  Once the
-                # spine exists, chunks never touch segment arrays again.
-                nxt = chunks[i + 1]
-                self._prefetch_range(
-                    int(nxt[0]), int(nxt[-1]),
-                    queries=nxt if _READ_TOURNAMENT_MAX_K <= 0 else None)
-            offs, dst, prop = self._resolve_batch(cu, pad_to=chunk_pad)
+        for lo in range(0, len(u), self._BATCH_CHUNK):
+            offs, dst, prop = self._resolve_batch(
+                u[lo:lo + self._BATCH_CHUNK], pad_to=chunk_pad)
             offs_l.append(offs[1:] + base)
             dst_l.append(dst)
             prop_l.append(prop)
@@ -1322,19 +1306,8 @@ class Snapshot:
         if bp < B:
             raise ValueError("pad_to below query count")
         dev = self.device
-        if B and not self.spine_ready():
-            # Pre-spine only: once the spine holds the merged records,
-            # evicted runs are never read again on this snapshot.  Filter
-            # gating applies only on the legacy path: the spine build
-            # merges every run regardless.
-            self._prefetch_range(
-                int(u[0]), int(u[-1]),
-                queries=u if _READ_TOURNAMENT_MAX_K <= 0 else None)
         u_pad = np.full(bp, INVALID_VID, np.int32)
         u_pad[:B] = u
-        if _READ_TOURNAMENT_MAX_K <= 0:
-            return self._resolve_batch_legacy(
-                u, torch.from_numpy(u_pad).to(dev))
         store = self._store
         label = store.obs_label
         with obs.REGISTRY.span("read_resolve_sealed", store=label):
@@ -1386,80 +1359,12 @@ class Snapshot:
             parts = [tuple(x.cpu().numpy() for x in part) for part in parts]
             return self._finish_resolve(parts, n_run, B)
 
-    def _resolve_batch_legacy(self, u: np.ndarray, u_j: torch.Tensor):
-        """Per-resolve concat + one segmented lexsort (the pre-spine read
-        path, kept behind LSMG_READ_TOURNAMENT_K=0): the records of every
-        run with a visible query, and of the MemGraph tiers, annihilated
-        per (query, dst) in one sort."""
-        B = len(u)
-        bp = u_j.shape[0]
-        lo_q, hi_q = (int(u[0]), int(u[-1])) if B else (0, -1)
-        mems = [mg for mg in self.mem_states if int(mg.ne) != 0]
-        first, min_fid, lvl_fid, _ = mlindex.lookup_batch(self.index, u_j)
-        first_np, min_np = first.cpu().numpy(), min_fid.cpu().numpy()
-        lvl_np = lvl_fid.cpu().numpy()
-        use_filters = _read_filters_enabled()
-        store = self._store
-
-        def filter_vis(rf, vis):
-            # The run's presence filter (host hash) ANDed into its
-            # visibility row before the any() gate, so a run every query
-            # misses is skipped.  Rows the index names skip this: the
-            # multi-level index is exact per vertex.
-            if not use_filters or rf.presence is None:
-                return vis
-            pre = int(np.count_nonzero(vis[:B]))
-            vis = vis.copy()
-            vis[:B] &= rf.presence.might_contain(u)
-            store._obs_filter_checked.inc(pre)
-            store._obs_filter_skipped.inc(
-                pre - int(np.count_nonzero(vis[:B])))
-            return vis
-
-        runs: List[Tuple[RunFile, Optional[np.ndarray]]] = []
-        for rf in self.l0_runs:
-            if rf.nv == 0 or rf.max_vid < lo_q or rf.min_vid > hi_q:
-                continue
-            vis = ((rf.fid >= min_np)
-                   & ((first_np == INVALID_VID) | (rf.fid >= first_np)))
-            vis = filter_vis(rf, vis)
-            if vis[:B].any():
-                runs.append((rf, vis))
-        if self.cfg.use_multilevel_index:
-            for col, lvl in enumerate(self.level_runs):
-                for rf in lvl:
-                    if rf.nv == 0:
-                        continue
-                    vis = lvl_np[:, col] == rf.fid
-                    if vis[:B].any():
-                        runs.append((rf, vis))
-        else:
-            # Ablation: no index (Fig 16 baseline) — every run whose vertex
-            # range meets the queries' is probed, past its filter.
-            for lvl in self.level_runs:
-                for rf in lvl:
-                    if rf.nv == 0 or rf.max_vid < lo_q or rf.min_vid > hi_q:
-                        continue
-                    vis = filter_vis(rf, np.ones(bp, bool))
-                    if not vis[:B].any():
-                        continue
-                    runs.append((rf, vis if use_filters
-                                 and rf.presence is not None else None))
-        store._obs_read_probes.inc(len(runs) + len(mems))
-        if not mems and not runs:
-            return (np.zeros(B + 1, np.int64), np.empty(0, np.int64),
-                    np.empty(0, np.float32))
-        q, d, p, live, n_run = _merge_lexsort(mems, runs, u_j, self.tau, B)
-        idx = torch.nonzero(live).reshape(-1)
-        part = tuple(x[idx].cpu().numpy() for x in (q, d, p))
-        return self._finish_resolve([part], n_run, B)
-
     def _finish_resolve(self, parts, n_run: int, B: int):
         """Combine the live records of each part into the final (offsets,
         dst, prop).  The (qid, dst) pairs are disjoint across parts and
         unique within each, so the sort is a deterministic merge —
-        byte-identical to annihilating one merged stream.  One part (the
-        legacy path's) is already sorted by (qid, dst)."""
+        byte-identical to annihilating one merged stream.  A lone part is
+        already sorted by (qid, dst) and is not sorted again."""
         self._store.io.analytics_read += n_run * _REC_BYTES
         ql = np.concatenate([p[0] for p in parts]).astype(np.int64)
         dl = np.concatenate([p[1] for p in parts]).astype(np.int64)
@@ -1592,28 +1497,23 @@ class Snapshot:
         return np.array(sorted(vs), np.int64)
 
 
-def _newest_per_pair(qid, dst, ts, marker, prop, tau: int, nq: int):
-    """Sort records by (query, dst, ts), a record of no query or newer than
-    τ keyed dead (INT32_MAX) so that it sorts to the tail, and mark the
-    newest record of each (query, dst) pair: (q, d, marker, prop, last)."""
-    qkey = torch.where((qid < nq) & (ts <= tau), qid, INVALID_VID).to(_I32)
-    order = csr.lexsort_edges(qkey, dst, ts)
-    q, d = qkey[order], dst[order]
-    last = (q != torch.roll(q, -1)) | (d != torch.roll(d, -1))
-    last[-1:] = True
-    return q, d, marker[order], prop[order], last
-
-
 def _mem_resolve(qid, dst, ts, marker, prop, tau: int, nq: int):
     """Annihilate the ACTIVE MemGraph tier's records per (query, dst): the
     newest τ-visible record of each pair wins (a tombstone winner hides the
     pair).  Returns the live records (qid, dst, prop) and the sorted
     (qid, dst) pair set holding ANY visible record, padded with INT32_MAX
-    past ``n_present`` — the suppression probe for the sealed winners."""
+    past ``n_present`` — the suppression probe for the sealed winners.
+
+    The records are sorted by (query, dst, ts), a record of no query or
+    newer than τ keyed dead (INT32_MAX) so that it sorts to the tail."""
     dead = INVALID_VID
-    q, d, m, p, last = _newest_per_pair(qid, dst, ts, marker, prop, tau, nq)
+    qkey = torch.where((qid < nq) & (ts <= tau), qid, dead).to(_I32)
+    order = csr.lexsort_edges(qkey, dst, ts)
+    q, d = qkey[order], dst[order]
+    last = (q != torch.roll(q, -1)) | (d != torch.roll(d, -1))
+    last[-1:] = True
     present = last & (q < nq)
-    live = present & ~m
+    live = present & ~marker[order]
     pidx = torch.nonzero(present).reshape(-1)
     n_present = pidx.shape[0]
     pad = q.shape[0] - n_present
@@ -1621,54 +1521,7 @@ def _mem_resolve(qid, dst, ts, marker, prop, tau: int, nq: int):
     pq = torch.cat([q[pidx], fill])
     pd = torch.cat([d[pidx], fill])
     lidx = torch.nonzero(live).reshape(-1)
-    return q[lidx], d[lidx], p[lidx], pq, pd, n_present
-
-
-def _run_query_records(run: csr.CSRRunArrays, u: torch.Tensor,
-                       vis_q: torch.Tensor):
-    """Flat (qid, dst, ts, marker, prop) of one run restricted to queried
-    vertices with per-query visibility vis_q (index / min-fid rules); qid
-    is len(u) for every other record."""
-    b = u.shape[0]
-    qid = csr.map_run_to_queries(run, u)
-    ok = (qid < b) & vis_q[qid.clamp(max=b - 1).long()]
-    return (torch.where(ok, qid, b).to(_I32), run.dst, run.ts, run.marker,
-            run.prop)
-
-
-def _merge_lexsort(mems, runs, u: torch.Tensor, tau: int, nq: int):
-    """Legacy merge: concat every source's records and run one segmented
-    lexsort (``_annihilate_batch``).  ``runs`` pairs each run with its
-    host visibility row over ``u`` (None: every query)."""
-    recs = [mg_mod.scan_vertices_batch(mg, u) for mg in mems]
-    n_mem = sum(int(r[0].shape[0]) for r in recs)
-    every = torch.ones(u.shape, dtype=torch.bool, device=u.device)
-    for rf, vis in runs:
-        vis_t = every if vis is None else torch.from_numpy(vis).to(u.device)
-        recs.append(_run_query_records(rf.ensure_loaded(), u, vis_t))
-    cols = [torch.cat([r[i] for r in recs]) for i in range(5)]
-    # Half-step buckets: the concat feeds the lexsort, this path's
-    # dominant (pad-length-linear) cost.
-    total = cols[0].shape[0]
-    pad = csr.quantize_cap(total, half_steps=True) - total
-    if pad:
-        cols = [torch.cat([c, torch.full((pad,), fill, dtype=c.dtype,
-                                         device=c.device)])
-                for c, fill in zip(cols, (INVALID_VID, 0, 0, False, 0.0))]
-    return _annihilate_batch(*cols, tau, nq, n_mem)
-
-
-def _annihilate_batch(qid, dst, ts, marker, prop, tau: int, nq: int,
-                      run_from: int):
-    """Segmented annihilation: one lexsort by (qid, dst, ts) over every
-    record of the batch; per (qid, dst) the newest ts <= τ wins and a
-    tombstone winner hides the edge.  Also returns the count of queried
-    run records (positions >= run_from), for the byte accounting."""
-    pos = torch.arange(qid.shape[0], device=qid.device)
-    n_run = int(((pos >= run_from) & (qid < nq)).sum())
-    q, d, m, p, last = _newest_per_pair(qid, dst, ts, marker, prop, tau, nq)
-    live = last & ~m & (q < nq)
-    return q, d, p, live, n_run
+    return q[lidx], d[lidx], prop[order[lidx]], pq, pd, n_present
 
 
 def _suppressed(q, d, pq, pd, n_present: int) -> torch.Tensor:

@@ -52,12 +52,11 @@ layer's instruments:
 * ``shard_*``  — shard/store.py: per-shard fencing state, ack latency,
   degraded-range count, routed-batch fan-out.
 * ``read_*``   — the read path (core/store.py resolve + core/types.py
-  prefetch): resolve batch latency (``read_resolve``, with the spine
-  path's steps ``read_resolve_sealed`` — query upload to the sealed
-  tier's parts —, ``read_resolve_mem`` — the active MemGraph and the
-  suppression of sealed winners — and ``read_resolve_host`` — the parts to
-  the host and the final merge there; the legacy path times no steps),
-  prefetch hit/miss, and the presence-
+  prefetch): resolve batch latency (``read_resolve``, with its steps
+  ``read_resolve_sealed`` — query upload to the sealed tier's parts —,
+  ``read_resolve_mem`` — the active MemGraph and the suppression of
+  sealed winners — and ``read_resolve_host`` — the parts to the host and
+  the final merge there), prefetch hit/miss, and the presence-
   filter counters — ``read_filter_checked_total`` ((run, query) pairs
   tested against a run's vertex-presence filter),
   ``read_filter_skipped_total`` (pairs the filter proved absent — device

@@ -378,10 +378,14 @@ def test_view_sources_counter_counts_each_source():
         assert merges.value - m0 == (i + 1) * (n_sources - 1)
 
 
-def test_view_layout_equals_the_read_spine_layout():
-    """The view lays a deep store's runs out (``view._lay_out``) as the
-    read spine does (``store._spine_run_streams``), run ids aside: every
-    column byte-equal, pads included, after two MemGraph tiers."""
+def test_one_layout_lays_tiers_then_runs():
+    """``store.lay_out_runs`` with a deep store's two MemGraph tiers
+    leading its runs: each source's slice of every column is its tier's
+    stream, or its run's records (``csr.expand_src`` of the run, then its
+    columns, with the run's position as rid), pads included; ``caps`` holds
+    each source's capacity.  The view's sources are the same columns
+    without the rid."""
+    from repro_torch.core import csr as pcsr
     from repro_torch.core import memgraph as pmg
     from repro_torch.core import store as port_store
     g = LSMGraph(StoreConfig(**dataclasses.asdict(
@@ -390,10 +394,19 @@ def test_view_layout_equals_the_read_spine_layout():
     snap = _case_deep_sealed_tier(g, None)
     runs = [rf for lvl in [snap.l0_runs] + snap.level_runs for rf in lvl]
     tiers = [pmg.backbone_stream(mg) for mg in snap.mem_states]
-    got, caps = pview._lay_out(tiers, runs)
-    lead = tuple(torch.cat(c) for c in zip(*tiers))
-    want, want_caps = port_store._spine_run_streams(
-        [(rf, 0) for rf in runs], lead=lead)
-    assert caps[2:] == want_caps[1:] and sum(caps[:2]) == want_caps[0]
-    for i, (a, b) in enumerate(zip(got, want[:3] + want[4:])):
+    assert len(tiers) == 2 and len(runs) >= 9
+    cols, caps = port_store.lay_out_runs(runs, leads=tiers)
+    want = tiers + [
+        (pcsr.expand_src(a), a.dst, a.ts,
+         torch.full(a.dst.shape, i, dtype=torch.int32), a.marker, a.prop)
+        for i, a in enumerate(rf.ensure_loaded() for rf in runs)]
+    assert caps == [int(w[0].shape[0]) for w in want]
+    starts = np.cumsum([0] + caps)
+    for k, (w, lo, hi) in enumerate(zip(want, starts[:-1], starts[1:])):
+        for i, (c, x) in enumerate(zip(cols, w)):
+            assert c.dtype == x.dtype and torch.equal(c[lo:hi], x), (k, i)
+    assert all(int(c.shape[0]) == starts[-1] for c in cols)
+    got, got_caps = pview._laid_out_sources(snap)
+    assert got_caps == caps
+    for i, (a, b) in enumerate(zip(got, cols[:3] + cols[4:])):
         assert a.dtype == b.dtype and torch.equal(a, b), i

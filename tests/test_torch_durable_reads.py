@@ -5,9 +5,9 @@ whatever the read path overlaps (background segment loads, chunked
 resolves, a concurrent compaction that unlinks replaced files),
 ``neighbors_batch`` stays equal to the per-vertex ``neighbors_scalar``.
 Beyond them, the same stream through a durable store of each package must
-read byte-equal cold, on the spine and on the legacy path.  Every wait on a
-background thread is bounded.  Tolerance: none (integers and float32
-properties carried through unchanged).
+read byte-equal cold.  Every wait on a background thread is bounded.
+Tolerance: none (integers and float32 properties carried through
+unchanged).
 """
 import dataclasses
 import threading
@@ -20,9 +20,7 @@ torch = pytest.importorskip("torch")
 
 from conftest import small_store_cfg  # noqa: E402
 from repro import storage as jstorage  # noqa: E402
-from repro.core import store as jax_store  # noqa: E402
 from repro_torch.core import StoreConfig  # noqa: E402
-from repro_torch.core import store as port_store  # noqa: E402
 from repro_torch.core.store import prefetch_pool  # noqa: E402
 from repro_torch.storage import open_store  # noqa: E402
 
@@ -181,15 +179,10 @@ def test_chunked_resolve_under_concurrent_compaction(tmp_path):
 
 
 # --------------------------------------------------- against the reference
-@pytest.mark.parametrize("legacy", [False, True])
-def test_cold_reads_equal_reference(tmp_path, monkeypatch, legacy):
+def test_cold_reads_equal_reference(tmp_path):
     """The same stream through a durable store of each package, every run
     evicted, then one chunked read of every vertex: byte-equal adjacency
-    and properties, on the read spine and on the legacy path (whose
-    prefetch is gated by the presence filters)."""
-    if legacy:
-        monkeypatch.setattr(port_store, "_READ_TOURNAMENT_MAX_K", 0)
-        monkeypatch.setattr(jax_store, "_READ_TOURNAMENT_MAX_K", 0)
+    and properties, and equal cold loads."""
     cfg = small_store_cfg(l0_run_limit=3)
     j = _fill(jstorage.open_store(str(tmp_path / "j"), cfg,
                                   wal_sync="off"), 2, seed=5)

@@ -187,7 +187,8 @@ def test_store_spine_matches_jax_pads_included():
     runs = [(rf, -1) for rf in g.levels[0]] + [
         (rf, col) for col, lvl in enumerate(g.levels[1:]) for rf in lvl]
     assert len(g.levels[1]) >= 80 and len(g.levels[2]) >= 1
-    cols, caps = port_store._spine_run_streams(runs, rid_base=3)
+    cols, caps = port_store.lay_out_runs([rf for rf, _col in runs],
+                                         rid_base=3)
     for (rf, _col), start, cap, rid in zip(
             runs, np.cumsum([0] + caps[:-1]), caps, range(3, 10**6)):
         a = rf.ensure_loaded()

@@ -1,8 +1,8 @@
 """The port's other read paths held against the JAX package's: the
 per-run batched lookup (``run_lookup_batch``, with the bisection kernel's
-plain version), the no-index ablation of paper Fig 16 on the read spine,
-and the legacy concat-then-lexsort read behind ``LSMG_READ_TOURNAMENT_K=0``
-(index on and off, one resolve and several chunks).
+plain version), and the batched read on the read spine of a deep store,
+with the no-index ablation of paper Fig 16, with the presence filters on
+and off (``LSMG_READ_FILTERS``), and through several chunked resolves.
 
 The same stream goes through ``repro.core.LSMGraph`` and
 ``repro_torch.core.LSMGraph(device="cpu")``; every read must be byte-equal
@@ -23,11 +23,9 @@ from conftest import small_store_cfg  # noqa: E402
 from repro.core import LSMGraph as JaxGraph  # noqa: E402
 from repro.core import StoreConfig as JaxConfig  # noqa: E402
 from repro.core import csr as jcsr  # noqa: E402
-from repro.core import store as jax_store  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
 from repro_torch.core import csr  # noqa: E402
-from repro_torch.core import store as port_store  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 
@@ -107,15 +105,6 @@ def _same(a, b):
 def _same_io(stores):
     js, ps = stores
     assert dataclasses.asdict(js.io) == ps.io.as_dict()
-
-
-@pytest.fixture
-def legacy(monkeypatch):
-    """Switch both packages to the legacy read path for one test."""
-    def on():
-        monkeypatch.setattr(jax_store, "_READ_TOURNAMENT_MAX_K", 0)
-        monkeypatch.setattr(port_store, "_READ_TOURNAMENT_MAX_K", 0)
-    return on
 
 
 # ------------------------------------------------------- run_lookup_batch
@@ -234,42 +223,36 @@ def test_no_index_batch_equals_scalar_matches_jax():
 
 
 @pytest.mark.parametrize("filters_on", ["1", "0"])
-def test_legacy_equals_spine_matches_jax(legacy, monkeypatch, filters_on):
-    """``test_read_pipeline.py::test_legacy_lexsort_path_equals_backbone``:
-    the legacy path (LSMG_READ_TOURNAMENT_K=0) answers as the spine path
-    does, in both packages, presence filters on and off."""
+def test_deep_store_spine_read_matches_jax(monkeypatch, filters_on):
+    """``test_read_pipeline.py``'s deep store (four L0 runs and an active
+    MemGraph): the spine read equals the JAX package's and the scalar
+    read, presence filters on and off, and leaves equal I/O counters."""
     monkeypatch.setenv("LSMG_READ_FILTERS", filters_on)
     stores = _deep_stores(4, seed=19)
-    vs = np.arange(0, 410, 2)
-    spine = _reads(stores, vs)
-    legacy()
-    _same(_reads(stores, vs), spine)
+    _reads(stores, np.arange(0, 410, 2))
     _same_io(stores)
 
 
 @pytest.mark.parametrize("filters_on", ["1", "0"])
-def test_legacy_no_index_matches_jax(legacy, monkeypatch, filters_on):
-    """The legacy path with the index off (paper Fig 16 baseline): every
-    L1+ run whose range meets the queries' is probed, past its filter."""
+def test_spine_no_index_read_matches_jax(monkeypatch, filters_on):
+    """The spine read with the index off (paper Fig 16 baseline: every run
+    probed, past its filter) equals the read with it on, the JAX
+    package's and the scalar read, presence filters on and off."""
     monkeypatch.setenv("LSMG_READ_FILTERS", filters_on)
     stores = _multi_tier_stores(seed=6)
     vs = np.arange(0, 520, 2)
-    spine = _reads(stores, vs)
-    legacy()
-    _same(_reads(stores, vs, index=False), spine)
-    _same(_reads(stores, vs), spine)
+    _same(_reads(stores, vs, index=False), _reads(stores, vs))
     _same_io(stores)
 
 
-def test_legacy_chunked_matches_jax(legacy):
-    """The legacy path through ``_resolve_batch_chunked`` (queries above
+def test_spine_chunked_matches_jax():
+    """The spine read through ``_resolve_batch_chunked`` (queries above
     the chunk bound stream through several resolves, here 9): the
-    stitched result equals the one-shot spine read."""
+    stitched result equals the one-shot read."""
     stores = _multi_tier_stores(seed=10)
     vs = np.arange(0, 520)
-    spine = _reads(stores, vs)
-    legacy()
+    one_shot = _reads(stores, vs)
     before = stores[1]._obs_resolve.count
-    _same(_reads(stores, vs, chunk=64), spine)
+    _same(_reads(stores, vs, chunk=64), one_shot)
     assert stores[1]._obs_resolve.count - before == 9
     _same_io(stores)

@@ -17,7 +17,6 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.analytics import materialize_csr  # noqa: E402
 from repro_torch.core import LSMGraph, StoreConfig  # noqa: E402
-from repro_torch.core import store as store_mod  # noqa: E402
 
 V = 1 << 10
 
@@ -152,20 +151,15 @@ def test_step_histograms_gain_within_their_parents():
         assert _gained(before, after, step + "_seconds")[1] == 1, step
 
 
-def test_ablation_and_legacy_paths_time_no_steps(monkeypatch):
-    monkeypatch.setattr(store_mod, "_READ_TOURNAMENT_MAX_K", 0)
+def test_array_only_ablation_times_no_apply_steps():
     g = _store(memcache_mode="array_only")
     before = _totals()
     rng = np.random.default_rng(3)
     g.insert_edges(rng.integers(0, V, 300), rng.integers(0, V, 300))
-    with g.snapshot() as snap:
-        snap.neighbors_batch(np.arange(64, dtype=np.int64))
     after = _totals()
     g.close()
     assert _gained(before, after, "store_apply_seconds")[1] == 2
-    assert _gained(before, after, "read_resolve_seconds")[1] == 1
     for name in ("store_apply_upload_seconds", "store_apply_claim_seconds",
                  "store_apply_place_seconds", "store_apply_wait_seconds",
-                 "store_apply_claim_rounds", "read_resolve_sealed_seconds",
-                 "read_resolve_mem_seconds", "read_resolve_host_seconds"):
+                 "store_apply_claim_rounds"):
         assert _gained(before, after, name)[1] == 0, name

@@ -40,7 +40,8 @@ _spec.loader.exec_module(base)
 PORT_DEVICE_ROOTS = {"torch", "to_device", "scalar", "_pad_backbone",
                      "_fit_spine_cols", "_stack_presence", "_empty_cols"}
 PORT_READ_PATH_FUNCS = {"_filter_remap_spine", "_stack_presence",
-                        "_pad_backbone", "_empty_cols", "prefetch_pool"}
+                        "_pad_backbone", "_empty_cols", "prefetch_pool",
+                        "lay_out_runs"}
 PORT_READ_PATH_METHODS = {("ConcurrentLSMGraph", "snapshot"),
                           ("LSMGraph", "query_edge"),
                           ("LSMGraph", "query_edges_batch")}
